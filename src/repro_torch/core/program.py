@@ -1,0 +1,815 @@
+"""Program-level fused execution: one kernel launch per relation program.
+
+The counterpart of ``repro.core.program``. :func:`compile_program` takes
+the full ``isa.PimInstruction`` list a :class:`~repro_torch.db.compiler.
+Compiler` emits for one relation (predicate DAG + valid-AND +
+aggregates), plans it exactly as the reference does (``analyze_program``,
+``plan_reduces``, ``plan_arith``, ``frees_by_instr``) and lowers it ONCE
+into a plane-op tape (``kernels.program``): the :class:`BitwiseEvaluator`
+runs over symbolic plane handles following the reference Pallas kernel's
+schedule, and every bitwise op it performs becomes a tape entry.
+:func:`run_program` then launches the tape as ONE kernel over the stacked
+source planes and weights the popcounts exactly on the host.
+
+Left out of this slice: cross-query linking (``link_programs``,
+``QuerySlot``; ROADMAP A7), sharding (A14), the ``Materialize`` output
+(A6) and the static verifier that the reference runs on every cache miss
+(A9; it checks the plan and changes no result).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import (Callable, Dict, FrozenSet, List, Mapping, Optional,
+                    Sequence, Tuple)
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import program as kprog
+from . import bitslice, isa
+from . import engine as eng
+
+_REDUCE_KINDS = ("ReduceSum", "ReduceMinMax")
+_DERIVED_KINDS = ("AddImm", "Add", "Subtract", "Multiply")
+
+
+# --------------------------------------------------------------------------
+# Static analysis: operand reads, register kinds, liveness
+# --------------------------------------------------------------------------
+def instruction_reads(ins: isa.PimInstruction) -> List[str]:
+    """Register/attribute names an instruction reads, in operand order."""
+    k = ins.kind
+    if k in ("EqualImm", "NotEqualImm", "LessThanImm", "GreaterThanImm",
+             "AddImm"):
+        return [ins.attr]
+    if k in ("Equal", "LessThan", "Add", "Subtract"):
+        return [ins.attr_a, ins.attr_b]
+    if k == "Multiply":
+        return [ins.attr_a] + ([ins.attr_b] if ins.attr_b else [])
+    if k in ("BitwiseAnd", "BitwiseOr"):
+        return [ins.src_a, ins.src_b]
+    if k == "BitwiseNot":
+        return [ins.src]
+    if k in ("SetReset", "PlaneWrite", "ValidClear"):
+        return []
+    if k in _REDUCE_KINDS:
+        return [ins.attr, ins.mask]
+    if k == "Materialize":
+        return [*ins.attrs, ins.mask]
+    if k == "ColumnTransform":
+        return [ins.mask]
+    raise ValueError(f"unknown instruction {k}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramAnalysis:
+    """Liveness / plane-usage facts about one instruction program."""
+    source_attrs: Tuple[str, ...]          # relation attributes read
+    reg_kind: Mapping[str, str]            # register -> mask|derived|scalar
+    widths: Mapping[str, int]              # register -> planes it occupies
+    last_use: Mapping[str, int]            # register -> last reading instr
+    peak_live_planes: int                  # max simultaneously-live planes
+    total_reg_planes: int                  # planes if nothing were freed
+
+
+def analyze_program(instrs: Sequence[isa.PimInstruction],
+                    relation: eng.PimRelation,
+                    keep: Sequence[str] = ()) -> ProgramAnalysis:
+    """Classify registers, find source attributes, compute liveness.
+
+    ``keep`` registers are pinned live through the end of the program
+    (the outputs the caller will read).
+    """
+    reg_kind: Dict[str, str] = {"__valid__": "mask"}
+    widths: Dict[str, int] = {"__valid__": 1}
+    last_use: Dict[str, int] = {}
+    source: List[str] = []
+    for i, ins in enumerate(instrs):
+        for r in instruction_reads(ins):
+            if r in reg_kind:
+                last_use[r] = i
+            else:
+                if r not in relation.planes:
+                    raise ValueError(
+                        f"instruction {i} ({ins.kind}) reads '{r}', which is "
+                        "neither a prior dest nor a relation attribute")
+                if r not in source:
+                    source.append(r)
+        k = ins.kind
+        if k in ("PlaneWrite", "ValidClear"):
+            continue
+        if k in _REDUCE_KINDS:
+            reg_kind[ins.dest] = "scalar"
+            widths[ins.dest] = 0
+        elif k == "Materialize":
+            reg_kind[ins.dest] = "values"
+            widths[ins.dest] = 0
+        elif k in _DERIVED_KINDS:
+            reg_kind[ins.dest] = "derived"
+            widths[ins.dest] = ins.n_bits
+        elif k == "BitwiseNot" and reg_kind.get(ins.src) != "mask":
+            # Attribute NOT (the imm - attr path): multi-plane result.
+            reg_kind[ins.dest] = "derived"
+            widths[ins.dest] = ins.n_bits
+        else:
+            reg_kind[ins.dest] = "mask"
+            widths[ins.dest] = 1
+    for r in keep:
+        last_use[r] = len(instrs)
+
+    # Peak live planes: forward sweep, registers die after their last use.
+    live: Dict[str, int] = {}
+    peak = 0
+    for i, ins in enumerate(instrs):
+        if ins.kind in ("PlaneWrite", "ValidClear"):
+            continue
+        if reg_kind.get(ins.dest) != "scalar":
+            live[ins.dest] = widths[ins.dest]
+        peak = max(peak, sum(live.values()))
+        for r in instruction_reads(ins):
+            if r in live and last_use.get(r) == i:
+                del live[r]
+    total = sum(w for n, w in widths.items() if n != "__valid__")
+    return ProgramAnalysis(tuple(source), reg_kind, widths, last_use,
+                           peak, total)
+
+
+# --------------------------------------------------------------------------
+# Shared evaluator for the non-reduce ISA subset
+# --------------------------------------------------------------------------
+class BitwiseEvaluator:
+    """Executes the bitwise/arithmetic ISA subset on plane values — here
+    the tape recorder's symbolic plane handles (``kernels.program``),
+    which turn every op into a tape entry, so the per-immediate op
+    specialisation (Algorithm 1) happens while recording. Reduces are the
+    caller's job. Mirrors the reference ``Engine.execute`` semantics bit
+    for bit, including unrepresentable-immediate short-circuits.
+    """
+
+    def __init__(self, plane_source: Callable[[str], object], valid):
+        self._source = plane_source
+        self.masks: Dict[str, object] = {"__valid__": valid}
+        self.derived: Dict[str, object] = {}
+        self._valid = valid
+
+    def planes(self, name: str):
+        if name in self.derived:
+            return self.derived[name]
+        if name in self.masks:
+            return self.masks[name][None]
+        return self._source(name)
+
+    def free(self, name: str) -> None:
+        """Drop a dead register."""
+        if name != "__valid__":
+            self.derived.pop(name, None)
+            self.masks.pop(name, None)
+
+    def _zeros(self):
+        return torch.zeros_like(self._valid)
+
+    def _ones(self):
+        return torch.full_like(self._valid, -1)
+
+    def execute(self, instr: isa.PimInstruction) -> None:
+        kind = instr.kind
+        if kind in ("EqualImm", "NotEqualImm", "LessThanImm",
+                    "GreaterThanImm"):
+            p = self.planes(instr.attr)
+            if instr.imm >= (1 << len(p)):
+                # Unrepresentable immediate: the comparison is constant.
+                m = (self._ones() if kind in ("NotEqualImm", "LessThanImm")
+                     else self._zeros())
+            elif kind == "EqualImm":
+                m = eng.eq_imm_planes(p, instr.imm)
+            elif kind == "NotEqualImm":
+                m = ~eng.eq_imm_planes(p, instr.imm)
+            else:
+                lt, eq = eng.cmp_imm_planes(p, instr.imm)
+                if kind == "LessThanImm":
+                    m = (lt | eq) if instr.or_equal else lt
+                else:
+                    m = ~lt if instr.or_equal else ~(lt | eq)
+            self.masks[instr.dest] = m
+        elif kind == "Equal":
+            _, eq = eng.cmp_planes(self.planes(instr.attr_a),
+                                   self.planes(instr.attr_b))
+            self.masks[instr.dest] = eq
+        elif kind == "LessThan":
+            lt, eq = eng.cmp_planes(self.planes(instr.attr_a),
+                                    self.planes(instr.attr_b))
+            self.masks[instr.dest] = (lt | eq) if instr.or_equal else lt
+        elif kind == "BitwiseAnd":
+            self.masks[instr.dest] = (self.masks[instr.src_a]
+                                      & self.masks[instr.src_b])
+        elif kind == "BitwiseOr":
+            self.masks[instr.dest] = (self.masks[instr.src_a]
+                                      | self.masks[instr.src_b])
+        elif kind == "BitwiseNot":
+            if instr.src in self.masks:
+                self.masks[instr.dest] = ~self.masks[instr.src]
+            else:
+                self.derived[instr.dest] = ~eng.extend_planes(
+                    self.planes(instr.src), instr.n_bits)
+        elif kind == "SetReset":
+            self.masks[instr.dest] = (self._ones() if instr.value
+                                      else self._zeros())
+        elif kind == "AddImm":
+            self.derived[instr.dest] = eng.add_imm_planes(
+                self.planes(instr.attr), instr.imm, instr.n_bits)
+        elif kind == "Add":
+            self.derived[instr.dest] = eng.add_planes(
+                self.planes(instr.attr_a), self.planes(instr.attr_b),
+                instr.n_bits)
+        elif kind == "Subtract":
+            self.derived[instr.dest] = eng.sub_planes(
+                self.planes(instr.attr_a), self.planes(instr.attr_b),
+                instr.n_bits)
+        elif kind == "Multiply":
+            if instr.imm is not None:
+                self.derived[instr.dest] = eng.mul_imm_planes_csa(
+                    self.planes(instr.attr_a), instr.imm, instr.n_bits)
+            else:
+                self.derived[instr.dest] = eng.mul_planes_csa(
+                    self.planes(instr.attr_a), self.planes(instr.attr_b),
+                    instr.n_bits)
+        elif kind == "ColumnTransform":
+            self.masks[instr.dest] = self.masks[instr.mask]
+        else:
+            raise ValueError(f"non-bitwise instruction {kind} "
+                             "must be handled by the caller")
+
+    # -- carry-save arithmetic batching ------------------------------------
+    def _arith_terms(self, instr: isa.PimInstruction):
+        """Decompose one derived-arith instruction into its carry-save
+        addend list: ``(terms, carry_in, out_bits)``. Immediates become
+        constant plane stacks; subtract contributes the inverted operand
+        with the ``+1`` as the final pass's carry-in."""
+        kind = instr.kind
+        w = instr.n_bits
+        if kind == "AddImm":
+            return ([self.planes(instr.attr),
+                     eng.imm_planes(instr.imm, w, self._valid)], 0, w)
+        if kind == "Add":
+            return ([self.planes(instr.attr_a), self.planes(instr.attr_b)],
+                    0, w)
+        if kind == "Subtract":
+            nb = ~eng.extend_planes(self.planes(instr.attr_b), w)
+            return ([self.planes(instr.attr_a), nb], 1, w)
+        if kind == "Multiply":
+            pa = self.planes(instr.attr_a)
+            if instr.imm is not None:
+                pps = eng.mul_partial_products(pa, None, instr.imm, w)
+            else:
+                pps = eng.mul_partial_products(pa, self.planes(instr.attr_b),
+                                               None, w)
+            return (pps, 0, w)
+        raise ValueError(f"not a derived-arith instruction: {kind}")
+
+    def execute_arith_batch(self, batch: Sequence[isa.PimInstruction]) -> None:
+        """Evaluate independent derived-arith instructions together at the
+        batch's anchor: each member's addends CSA-reduce to a (sum, carry)
+        pair, then one carry-propagate pass per member. The reference
+        stacks those passes into one vectorised pass for XLA; per plane
+        op it is the same ripple, so the bits are identical."""
+        for ins in batch:
+            terms, cin, w = self._arith_terms(ins)
+            if not terms:
+                self.derived[ins.dest] = torch.stack([self._zeros()] * w)
+            elif len(terms) == 1 and not cin:
+                self.derived[ins.dest] = eng.extend_planes(terms[0], w)
+            else:
+                s, c = eng.csa_reduce(terms, w)
+                self.derived[ins.dest] = eng.add_planes(s, c, w,
+                                                        carry_in=cin)
+
+
+def _reduce_minmax_bits(planes, mask, is_max: bool,
+                        rec: "kprog.TapeRecorder", col_start: int) -> None:
+    """MSB-first MIN/MAX narrowing, recorded on the tape. Per block the
+    kernel writes bit ``b`` of the block's extremum at column
+    ``col_start + b`` and whether the block selects anything at
+    ``col_start + width``; :func:`combine_minmax_candidates` reduces the
+    blocks and the host maps found=False (empty selection) to None."""
+    cand = mask
+    for b in range(len(planes) - 1, -1, -1):
+        cand = rec.narrow(cand, planes[b], is_max, col_start + b)
+    rec.any(mask, col_start + len(planes))
+
+
+def combine_minmax_candidates(bits: torch.Tensor, found: torch.Tensor,
+                              is_max: bool):
+    """MIN/MAX candidate combine, exact at any bit width.
+
+    ``bits`` is ``(n_candidates, n_bits)`` int32 per-candidate extremum
+    bits (LSB-first), ``found`` is ``(n_candidates,)`` bool. MSB-first
+    narrowing over the candidate axis (here: the kernel's blocks).
+    Returns ``((n_bits,) int32 extremum bits, () bool any-found)``.
+    """
+    n_bits = bits.shape[1]
+    cand = found
+    out = [None] * n_bits
+    for b in range(n_bits - 1, -1, -1):
+        vb = bits[:, b] != 0
+        t = cand & vb if is_max else cand & ~vb
+        has = torch.any(t)
+        out[b] = (has if is_max else ~has).to(torch.int32)
+        cand = torch.where(has, t, cand)
+    return torch.stack(out), torch.any(found)
+
+
+# --------------------------------------------------------------------------
+# Reduce planning: grouped popcounts + in-kernel MIN/MAX jobs
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SumJob:
+    """All ReduceSums over one source plane stack, coalesced.
+
+    The popcount executes once, at instruction index ``exec_at`` (the last
+    member's position), against the whole stack of ``masks``. Columns
+    ``[col_start, col_start + width * len(masks))`` of the popcount
+    accumulator hold the per-(bit, group) partials, bit-major: column
+    ``col_start + b * len(masks) + g`` is (bit b, mask g).
+    """
+    attr: str
+    masks: Tuple[str, ...]           # unique mask registers, stack order
+    width: int                       # planes of the shared operand
+    exec_at: int                     # instruction index the job runs at
+    col_start: int
+
+    @property
+    def n_cols(self) -> int:
+        return self.width * len(self.masks)
+
+
+@dataclasses.dataclass(frozen=True)
+class MinMaxJob:
+    """One ReduceMinMax, lowered into the kernel at its own position:
+    ``width`` candidate bits plus a found flag per block at columns
+    ``[col_start, col_start + width]`` of the per-block MIN/MAX output."""
+    dest: str
+    attr: str
+    mask: str
+    width: int
+    is_max: bool
+    exec_at: int
+    col_start: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ReducePlan:
+    """Grouped reduce jobs + liveness extended across job deferral."""
+    sum_jobs: Tuple[SumJob, ...]
+    mm_jobs: Tuple[MinMaxJob, ...]
+    dest_slot: Mapping[str, Tuple[int, int]]  # sum dest -> (job, mask idx)
+    last_use: Mapping[str, int]               # analysis.last_use, extended
+    n_pc_cols: int                            # popcount accumulator columns
+    n_mm_cols: int                            # per-block MIN/MAX columns
+    plane_reads: int                          # agg plane reads/pass, grouped
+    plane_reads_ungrouped: int                # one read per ReduceSum/MinMax
+
+
+def plan_reduces(instrs: Sequence[isa.PimInstruction],
+                 analysis: ProgramAnalysis,
+                 widths: Mapping[str, int]) -> ReducePlan:
+    """Coalesce ReduceSums sharing a source plane stack into grouped jobs.
+
+    Grouping defers a member's popcount to the last member's position,
+    which is only sound while registers are single-assignment; if a
+    destination is ever reassigned, every reduce becomes a singleton job
+    at its own position. Identical (attr, mask) pairs share one
+    accumulator column.
+    """
+    seen_dests: set = set()
+    ssa = True
+    for ins in instrs:
+        if ins.dest in seen_dests:
+            ssa = False
+        seen_dests.add(ins.dest)
+
+    def op_width(ins) -> int:
+        if analysis.reg_kind.get(ins.attr) == "mask":
+            return 1
+        return analysis.widths.get(ins.attr, widths.get(ins.attr, ins.n_bits))
+
+    members: Dict[str, List[Tuple[int, str, str]]] = {}
+    order: List[str] = []
+    job_width: Dict[str, int] = {}
+    mm_jobs: List[MinMaxJob] = []
+    ungrouped = 0
+    mm_col = 0
+    for i, ins in enumerate(instrs):
+        if ins.kind == "ReduceSum":
+            w = op_width(ins)
+            ungrouped += w
+            key = ins.attr if ssa else f"{ins.attr}@{i}"
+            if key not in members:
+                members[key] = []
+                order.append(key)
+                job_width[key] = w
+            members[key].append((i, ins.dest, ins.mask))
+        elif ins.kind == "ReduceMinMax":
+            w = op_width(ins)
+            ungrouped += w
+            mm_jobs.append(MinMaxJob(ins.dest, ins.attr, ins.mask, w,
+                                     ins.is_max, i, mm_col))
+            mm_col += w + 1                   # bits + found flag
+    sum_jobs: List[SumJob] = []
+    dest_slot: Dict[str, Tuple[int, int]] = {}
+    last_use: Dict[str, int] = dict(analysis.last_use)
+    col = 0
+    for j, key in enumerate(order):
+        masks: List[str] = []
+        for i, dest, mask in members[key]:
+            if mask not in masks:
+                masks.append(mask)
+            dest_slot[dest] = (j, masks.index(mask))
+        exec_at = max(i for i, _, _ in members[key])
+        attr = instrs[members[key][0][0]].attr
+        job = SumJob(attr, tuple(masks), job_width[key], exec_at, col)
+        sum_jobs.append(job)
+        col += job.n_cols
+        for r in (attr, *masks):             # operands live until the job
+            if r in analysis.reg_kind:       # registers only, never the
+                last_use[r] = max(last_use.get(r, -1), exec_at)  # sources
+    plane_reads = sum(s.width for s in sum_jobs) + sum(m.width
+                                                       for m in mm_jobs)
+    return ReducePlan(tuple(sum_jobs), tuple(mm_jobs), dest_slot, last_use,
+                      col, mm_col, plane_reads, ungrouped)
+
+
+# --------------------------------------------------------------------------
+# Arithmetic planning: carry-save lowering + plane-group batching
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ArithPlan:
+    """How the derived-arith instructions lower to carry-save trees.
+
+    ``batches`` are runs of mutually independent derived instructions
+    that execute together at the first member's position. Depth counters
+    measure serialized plane-op chains (a ripple step is depth 1 per bit;
+    a 3:2 compressor level is depth 1 regardless of width).
+    """
+    batches: Tuple[Tuple[int, ...], ...]   # instruction-index runs, len >= 2
+    depth_csa: int                         # serialized depth, CSA + batching
+    depth_ripple: int                      # same program, ripple lowering
+
+    @property
+    def batched_indices(self) -> FrozenSet[int]:
+        return frozenset(i for b in self.batches for i in b)
+
+
+def _arith_addend_count(ins: isa.PimInstruction,
+                        op_width: Callable[[str], int]) -> int:
+    """Number of carry-save addends an instruction contributes."""
+    if ins.kind == "Multiply":
+        w = ins.n_bits
+        if ins.imm is not None:
+            return sum(1 for b in range(w) if (ins.imm >> b) & 1)
+        return min(op_width(ins.attr_b), w)
+    return 2                                     # a + b / a + imm / a + ~b
+
+
+def plan_arith(instrs: Sequence[isa.PimInstruction],
+               analysis: ProgramAnalysis,
+               widths: Mapping[str, int]) -> ArithPlan:
+    """Plan the carry-save lowering of every derived-arith instruction.
+
+    A batch executes at its *first* member's position; a later derived
+    instruction may join an open batch when every operand it reads was
+    produced before that position (source attributes always qualify).
+    Early execution is sound under single-assignment; batching is
+    disabled otherwise.
+    """
+    producer: Dict[str, int] = {}
+    ssa = True
+    for i, ins in enumerate(instrs):
+        if ins.dest in producer:
+            ssa = False
+        producer[ins.dest] = i
+
+    def op_width(name: str) -> int:
+        if analysis.reg_kind.get(name) == "mask":
+            return 1
+        return analysis.widths.get(name, widths.get(name, 1))
+
+    batches: List[Tuple[int, ...]] = []
+    if ssa:
+        open_start: Optional[int] = None
+        members: List[int] = []
+        for i, ins in enumerate(instrs):
+            if ins.kind not in _DERIVED_KINDS:
+                continue
+            joins = open_start is not None and all(
+                producer.get(r, -1) < open_start
+                for r in instruction_reads(ins))
+            if joins:
+                members.append(i)
+            else:
+                if len(members) > 1:
+                    batches.append(tuple(members))
+                open_start, members = i, [i]
+        if len(members) > 1:
+            batches.append(tuple(members))
+
+    in_batch = {i for b in batches for i in b}
+    depth_csa = 0
+    depth_ripple = 0
+
+    def member_stats(ins: isa.PimInstruction) -> Tuple[int, int]:
+        """(csa tree levels, addend count) of one instruction."""
+        k = _arith_addend_count(ins, op_width)
+        return eng.csa_tree_levels(k), k
+
+    for i, ins in enumerate(instrs):
+        if ins.kind not in _DERIVED_KINDS:
+            continue
+        levels, k = member_stats(ins)
+        w = ins.n_bits
+        depth_ripple += max(0, k - 1) * w
+        if k > 1 and i not in in_batch:
+            depth_csa += levels + w
+    for b in batches:
+        stats = [member_stats(instrs[i]) for i in b]
+        live = [(lv, instrs[i].n_bits) for (lv, k), i in zip(stats, b)
+                if k > 1]
+        if live:
+            depth_csa += max(lv for lv, _ in live) + max(w for _, w in live)
+    return ArithPlan(tuple(batches), depth_csa, depth_ripple)
+
+
+def frees_by_instr(n_instrs: int, last_use: Mapping[str, int],
+                   keep: FrozenSet[str]) -> Tuple[Tuple[str, ...], ...]:
+    """frees[i] = registers whose (plan-extended) last use is instruction
+    ``i`` — dropped right after it executes."""
+    frees: List[List[str]] = [[] for _ in range(n_instrs)]
+    for r, i in last_use.items():
+        if 0 <= i < n_instrs and r not in keep and r != "__valid__":
+            frees[i].append(r)
+    return tuple(tuple(sorted(f)) for f in frees)
+
+
+# --------------------------------------------------------------------------
+# compile_program / run_program
+# --------------------------------------------------------------------------
+class LruFnCache:
+    """Bounded LRU of lowered programs (tapes) keyed by the full static
+    program signature, so recompiling the same query against the same
+    layout reuses the recorded tape (PimDatabase constructs a fresh
+    Compiler per run). Bounded because the key includes the whole
+    instruction tuple: a long-lived process answering ad-hoc queries
+    would otherwise keep every tape it ever recorded."""
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError("cache capacity must be >= 1")
+        self._data: "collections.OrderedDict[tuple, object]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+        self.capacity = capacity
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def get(self, key: tuple):
+        with self._lock:
+            fn = self._data.get(key)
+            if fn is not None:
+                self._data.move_to_end(key)
+            return fn
+
+    def put(self, key: tuple, fn) -> None:
+        with self._lock:
+            self._data[key] = fn
+            self._data.move_to_end(key)
+            while len(self._data) > self.capacity:
+                self._data.popitem(last=False)
+
+
+_FN_CACHE = LruFnCache(capacity=128)
+
+
+def program_signature(instrs: Tuple[isa.PimInstruction, ...],
+                      mask_outputs: Tuple[str, ...],
+                      widths: Mapping[str, int]) -> tuple:
+    """The static signature a tape is cached under: everything that can
+    change the recorded tape — instruction stream, requested outputs and
+    the source widths that fix the stacked row layout — and nothing else.
+    The relation's word count and content do not shape the tape."""
+    return (instrs, mask_outputs, tuple(sorted(widths.items())))
+
+
+@dataclasses.dataclass
+class CompiledProgram:
+    """A relation program lowered to one kernel launch."""
+    instrs: Tuple[isa.PimInstruction, ...]
+    mask_outputs: Tuple[str, ...]
+    scalar_kinds: Dict[str, tuple]         # dest -> ("sum",)|("minmax", max)
+    analysis: ProgramAnalysis
+    plan: ReducePlan
+    arith: ArithPlan
+    tape: "kprog.Tape"
+    # Source attribute -> bit-planes it contributes to the stacked rows.
+    source_plane_counts: Mapping[str, int]
+
+    @property
+    def n_dispatches(self) -> int:
+        """Kernel launches per execution — the fusion headline."""
+        return 1
+
+    @property
+    def agg_plane_reads(self) -> int:
+        """Aggregate-plane tile reads per pass under the grouped plan."""
+        return self.plan.plane_reads
+
+    @property
+    def source_plane_reads(self) -> int:
+        """Source bit-planes streamed per launch."""
+        return sum(self.source_plane_counts.values())
+
+    @property
+    def total_plane_reads(self) -> int:
+        return self.source_plane_reads + self.plan.plane_reads
+
+    @property
+    def agg_plane_reads_ungrouped(self) -> int:
+        """Same count with one read per ReduceSum/MinMax."""
+        return self.plan.plane_reads_ungrouped
+
+    @property
+    def n_reduce_jobs(self) -> int:
+        return len(self.plan.sum_jobs) + len(self.plan.mm_jobs)
+
+    @property
+    def arith_depth_csa(self) -> int:
+        return self.arith.depth_csa
+
+    @property
+    def arith_depth_ripple(self) -> int:
+        return self.arith.depth_ripple
+
+    @property
+    def peak_live_planes(self) -> int:
+        return self.analysis.peak_live_planes
+
+    @property
+    def total_reg_planes(self) -> int:
+        return self.analysis.total_reg_planes
+
+    def paper_cycles(self) -> int:
+        return sum(i.cycles() for i in self.instrs)
+
+
+class ProgramResult:
+    """Outputs of one fused launch; exact host-side finalisation."""
+
+    def __init__(self, cp: CompiledProgram, raw: Dict[str, dict],
+                 n_records: int):
+        self._cp = cp
+        self._raw = raw
+        self._n = n_records
+
+    def mask_packed(self, name: str) -> np.ndarray:
+        return self._raw["masks"][name]
+
+    def mask(self, name: str, n_records: Optional[int] = None) -> np.ndarray:
+        n = self._n if n_records is None else n_records
+        return bitslice.unpack_mask(self.mask_packed(name), n)
+
+    def scalar(self, name: str) -> Optional[int]:
+        kind = self._cp.scalar_kinds[name][0]
+        if kind == "sum":
+            j, k = self._cp.plan.dest_slot[name]
+            pcs = self._raw["job_pc"][j][k]
+            return sum(int(pcs[b]) << b for b in range(pcs.shape[0]))
+        if kind == "minmax":
+            if not self._raw["mm_found"][name]:
+                return None
+            bits = self._raw["mm_bits"][name]
+            return sum(int(bits[b]) << b for b in range(bits.shape[0]))
+        raise KeyError(name)
+
+
+def compile_program(relation: eng.PimRelation,
+                    program: Sequence[isa.PimInstruction],
+                    mask_outputs: Sequence[str] = ()) -> CompiledProgram:
+    """Plan a whole relation program and lower it to one kernel tape.
+
+    ``mask_outputs`` names the mask registers the host will read; every
+    reduce destination automatically becomes a scalar output.
+    """
+    instrs = tuple(program)
+    mask_outputs = tuple(mask_outputs)
+    scalar_kinds: Dict[str, tuple] = {}
+    for ins in instrs:
+        if ins.kind == "ReduceSum":
+            scalar_kinds[ins.dest] = ("sum",)
+        elif ins.kind == "ReduceMinMax":
+            scalar_kinds[ins.dest] = ("minmax", ins.is_max)
+        elif ins.kind == "Materialize":
+            raise NotImplementedError(
+                "Materialize (selected records back to column values) is "
+                "the next slice of the port: ROADMAP A6")
+    analysis = analyze_program(instrs, relation, keep=mask_outputs)
+    widths = {a: relation.width_of(a) for a in analysis.source_attrs}
+    plan = plan_reduces(instrs, analysis, widths)
+    arith = plan_arith(instrs, analysis, widths)
+
+    sig = program_signature(instrs, mask_outputs, widths)
+    tape = _FN_CACHE.get(sig)
+    if tape is None:
+        tape = _build_tape(instrs, mask_outputs, analysis, widths, plan,
+                           arith)
+        _FN_CACHE.put(sig, tape)
+    return CompiledProgram(instrs, mask_outputs, scalar_kinds, analysis,
+                           plan, arith, tape, dict(widths))
+
+
+def stack_sources(cp: CompiledProgram,
+                  relation: eng.PimRelation) -> torch.Tensor:
+    """The kernel's input, ``(rows, W)``: every source attribute's planes
+    in ``analysis.source_attrs`` order (the tape's row order), then the
+    valid plane."""
+    return torch.cat([relation.planes[a] for a in cp.analysis.source_attrs]
+                     + [relation.valid[None]])
+
+
+def run_program(cp: CompiledProgram, relation: eng.PimRelation
+                ) -> ProgramResult:
+    """Execute a compiled program: ONE kernel launch for the whole
+    relation program, then exact host-side weighting of the popcounts."""
+    masks, pc, mm = kprog.fused_program(stack_sources(cp, relation), cp.tape)
+    masks, pc, mm = eng.to_words(masks), pc.cpu().numpy(), mm.cpu()
+    job_pc = [pc[job.col_start:job.col_start + job.n_cols]
+              .reshape(job.width, len(job.masks)).T
+              for job in cp.plan.sum_jobs]
+    mm_bits: Dict[str, np.ndarray] = {}
+    mm_found: Dict[str, bool] = {}
+    for mj in cp.plan.mm_jobs:
+        bits, found = combine_minmax_candidates(
+            mm[:, mj.col_start:mj.col_start + mj.width],
+            mm[:, mj.col_start + mj.width] != 0, mj.is_max)
+        mm_bits[mj.dest] = bits.numpy()
+        mm_found[mj.dest] = bool(found)
+    raw = {"masks": {m: masks[k] for k, m in enumerate(cp.mask_outputs)},
+           "job_pc": job_pc, "mm_bits": mm_bits, "mm_found": mm_found}
+    return ProgramResult(cp, raw, relation.n_records)
+
+
+# --------------------------------------------------------------------------
+# Lowering: the Pallas kernel's schedule, recorded as a plane-op tape
+# --------------------------------------------------------------------------
+def _build_tape(instrs, mask_outputs, analysis: ProgramAnalysis,
+                widths: Mapping[str, int], plan: ReducePlan,
+                arith: ArithPlan) -> "kprog.Tape":
+    """Record the tape of one program, following the reference Pallas
+    kernel's schedule exactly: ReduceSum jobs at their ``exec_at``, CSA
+    batches at their anchor, MIN/MAX at its own position, and ``frees``
+    after each instruction. Rows: source attributes in
+    ``analysis.source_attrs`` order, then the valid plane."""
+    frees = frees_by_instr(len(instrs), plan.last_use,
+                           frozenset(mask_outputs))
+    attr_rows: Dict[str, Tuple[int, int]] = {}
+    r0 = 0
+    for a in analysis.source_attrs:
+        attr_rows[a] = (r0, r0 + widths[a])
+        r0 += widths[a]
+    rec = kprog.TapeRecorder()
+    ev = BitwiseEvaluator(lambda a: rec.rows(*attr_rows[a]), rec.row(r0))
+
+    jobs_at: Dict[int, List[SumJob]] = {}
+    for job in plan.sum_jobs:
+        jobs_at.setdefault(job.exec_at, []).append(job)
+    mm_at = {mj.exec_at: mj for mj in plan.mm_jobs}
+    batch_at = {b[0]: b for b in arith.batches}
+    batched = arith.batched_indices
+
+    for i, ins in enumerate(instrs):
+        if ins.kind == "ReduceSum":
+            pass                       # runs at its grouped job's exec_at
+        elif ins.kind == "ReduceMinMax":
+            mj = mm_at[i]
+            _reduce_minmax_bits(ev.planes(mj.attr)[:mj.width],
+                                ev.masks[mj.mask], mj.is_max, rec,
+                                mj.col_start)
+        elif i in batch_at:
+            ev.execute_arith_batch([instrs[j] for j in batch_at[i]])
+        elif i in batched:
+            pass                       # ran with its batch at batch_at
+        else:
+            ev.execute(ins)
+        for job in jobs_at.get(i, ()):
+            # ONE read of each aggregate plane for the whole mask stack.
+            p = ev.planes(job.attr)
+            g = len(job.masks)
+            for b in range(job.width):
+                for k, m in enumerate(job.masks):
+                    rec.popcount(ev.masks[m], p[b], job.col_start + b * g + k)
+        for r in frees[i]:
+            ev.free(r)
+    for k, name in enumerate(mask_outputs):
+        rec.store(ev.masks[name], k)
+    return rec.finish(n_rows=r0 + 1, n_masks=len(mask_outputs),
+                      n_pc=plan.n_pc_cols, n_mm=plan.n_mm_cols)

@@ -1,0 +1,315 @@
+"""PimDatabase: the device-resident database copy + query execution.
+
+The counterpart of ``repro.db.database`` for the filter/aggregate slice:
+``PimDatabase(tables, device="cuda").execute(spec, engine=...)`` runs one
+``QuerySpec`` without a host stage (``spec.filter_only()``):
+
+  * ``Engine.FUSED`` — one kernel launch per relation program
+    (``core.program``; the hand-written CUDA kernel on a CUDA device, its
+    plain PyTorch version on the CPU), exact host weighting of the
+    popcounts;
+  * ``Engine.ORACLE`` — the numpy column-store scan (paper §5.5), the
+    check FUSED is held to.
+
+Not in this slice: specs with a host stage (materialize + joins, ROADMAP
+A6), linked multi-spec batches (A7), the eager engine (A8), DML, faults
+and serving (A10–A12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import time
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine as eng
+from repro_torch.core import isa
+from repro_torch.core import program as prog
+from . import queries as Q
+from . import schema as S
+from .compiler import And, Compiler, predicate_attrs
+
+
+@dataclasses.dataclass
+class RelationRun:
+    """Per-relation outcome of a query.
+
+    The ``agg_plane_reads*`` counters come from the fused executor's
+    reduce plan (grouped popcounts vs one read per ReduceSum/MinMax) and
+    are zero on ORACLE runs, which have no plan.
+    """
+    n_records: int
+    mask: np.ndarray
+    trace: List[isa.PimInstruction]
+    selectivity: float
+    filter_attr_bits: List[int]
+    filter_attr_sels: List[float]
+    agg_attr_bits: List[int]
+    agg_plane_reads: int = 0
+    agg_plane_reads_ungrouped: int = 0
+    n_reduce_jobs: int = 0
+
+
+class Engine(enum.Enum):
+    """Execution substrate of :meth:`PimDatabase.execute`.
+
+    FUSED — one kernel launch per relation program.
+    ORACLE — the numpy column-store scan baseline (paper §5.5).
+    """
+    FUSED = "fused"
+    ORACLE = "oracle"
+
+    @classmethod
+    def coerce(cls, v) -> "Engine":
+        """Accept an Engine or its string value."""
+        return v if isinstance(v, Engine) else cls(str(v).lower())
+
+
+@dataclasses.dataclass
+class QueryResult:
+    """Result of :meth:`PimDatabase.execute`: ``aggregates`` (group ->
+    {agg: value}; an empty group's avg/min/max is ``None``) and the
+    per-relation ``relations`` runs. ``batch_stats`` holds the FUSED
+    run's launch-level accounting."""
+    spec: Q.QuerySpec
+    engine: Engine = Engine.FUSED
+    aggregates: Dict[str, Dict[str, object]] = dataclasses.field(
+        default_factory=dict)
+    relations: Dict[str, RelationRun] = dataclasses.field(
+        default_factory=dict)
+    pim_s: float = 0.0
+    wall_s: float = 0.0
+    batch_stats: Optional[Dict[str, object]] = None
+
+    @property
+    def name(self) -> str:
+        return self.spec.name
+
+    @property
+    def kind(self) -> str:
+        return self.spec.kind
+
+
+class PimDatabase:
+    """The PIM-resident relations of ``tables`` as bit-planes on
+    ``device`` (default ``"cuda"``; it raises where CUDA is unavailable
+    rather than running anywhere else)."""
+
+    def __init__(self, tables: Dict[str, Dict[str, np.ndarray]],
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"PimDatabase on {self.device}: torch.cuda.is_available() "
+                "is false (pass device='cpu' to run the plain PyTorch path)")
+        self.tables = tables
+        # Counters of the most recent FUSED execute() — None until one ran.
+        self.last_batch_stats: Optional[Dict[str, object]] = None
+        self.relations: Dict[str, eng.PimRelation] = {}
+        for name, cols in tables.items():
+            if S.SCHEMA[name].in_pim:
+                enc = {a.name: a.encoding for a in S.SCHEMA[name].attrs}
+                self.relations[name] = eng.PimRelation.from_columns(
+                    name, cols, encodings=enc, device=self.device)
+
+    # -- PIM execution ------------------------------------------------------
+    def _compile_relation(self, rel: eng.PimRelation, spec: Q.QuerySpec,
+                          pred) -> Tuple[Compiler, str,
+                                         List[Tuple[str, Dict]]]:
+        """Compile the FULL program for one relation: filter, group masks,
+        aggregates. Returns (compiler, filter mask register,
+        [(group label, {agg name: (kind, reg)})])."""
+        c = Compiler(rel)
+        is_agg_rel = (spec.kind == "full" and rel.name == spec.agg_relation)
+        mask_reg = c.compile_filter(pred, with_transform=not is_agg_rel)
+        group_regs: List[Tuple[str, Dict]] = []
+        if is_agg_rel:
+            for label, gpred in (spec.groups or [("all", None)]):
+                if gpred is None:
+                    gmask = mask_reg
+                else:
+                    gm = c.compile_pred(gpred)
+                    gmask = c.fresh("m")
+                    c.program.append(isa.BitwiseAnd(
+                        dest=gmask, src_a=mask_reg, src_b=gm))
+                group_regs.append((label, c.compile_aggregates(
+                    gmask, spec.aggregates)))
+        return c, mask_reg, group_regs
+
+    @staticmethod
+    def _finalize_aggs(group_regs, read_scalar, read_reduce
+                       ) -> Dict[str, Dict[str, object]]:
+        aggs: Dict[str, Dict[str, object]] = {}
+        for label, regs in group_regs:
+            out: Dict[str, object] = {}
+            for name, (kind, reg) in regs.items():
+                if kind == "avg_pair":
+                    s_reg, c_reg = reg.split("/")
+                    s, c = int(read_scalar(s_reg)), int(read_scalar(c_reg))
+                    # Empty-group avg is None, never a 0/0 pair.
+                    out[name] = None if c == 0 else (s, c)
+                elif kind == "minmax":
+                    out[name] = read_reduce(reg)
+                else:
+                    out[name] = read_scalar(reg)
+            aggs[label] = out
+        return aggs
+
+    def _relation_run(self, rel: eng.PimRelation, rel_name: str,
+                      spec: Q.QuerySpec, pred, mask: np.ndarray,
+                      trace: List[isa.PimInstruction],
+                      cp: prog.CompiledProgram) -> RelationRun:
+        cols = self.tables[rel_name]
+        attrs = predicate_attrs(pred)
+        sels = _conjunct_selectivities(cols, pred)
+        agg_bits: List[int] = []
+        if spec.kind == "full" and rel_name == spec.agg_relation:
+            for a in spec.aggregates:
+                if a.expr is not None:
+                    agg_bits += [rel.width_of(x)
+                                 for x in predicate_attrs_of_expr(a.expr)]
+        return RelationRun(
+            n_records=rel.n_records, mask=mask, trace=trace,
+            selectivity=float(mask.mean()) if mask.size else 0.0,
+            filter_attr_bits=[rel.width_of(a) for a in attrs],
+            filter_attr_sels=sels, agg_attr_bits=agg_bits,
+            agg_plane_reads=cp.agg_plane_reads,
+            agg_plane_reads_ungrouped=cp.agg_plane_reads_ungrouped,
+            n_reduce_jobs=cp.n_reduce_jobs)
+
+    # -- execution entry point ------------------------------------------------
+    def execute(self, spec: Q.QuerySpec, *,
+                engine: Union[Engine, str] = Engine.FUSED) -> QueryResult:
+        """Run one :class:`~repro_torch.db.queries.QuerySpec` on ``engine``.
+
+        Only the mask/aggregate scope is ported: a spec that carries a
+        host stage raises ``NotImplementedError`` (use
+        ``spec.filter_only()``), as does a list of specs."""
+        engine = Engine.coerce(engine)
+        if not isinstance(spec, Q.QuerySpec):
+            raise NotImplementedError(
+                "batches of specs, linked into one launch per relation, "
+                "are not ported yet: ROADMAP A7")
+        if spec.host is not None:
+            raise NotImplementedError(
+                f"{spec.name} carries a host stage (materialize + joins), "
+                "which is not ported yet: ROADMAP A6; run "
+                "spec.filter_only()")
+        return self._execute_one(spec, engine)
+
+    def _execute_one(self, spec: Q.QuerySpec, engine: Engine) -> QueryResult:
+        if engine is Engine.ORACLE:
+            return self._execute_baseline(spec)
+        return self._execute_pim(spec)
+
+    def _execute_pim(self, spec: Q.QuerySpec) -> QueryResult:
+        """FUSED: one compiled launch per relation program — the paper's
+        single-pass, single-readout execution model."""
+        t_all = time.perf_counter()
+        rel_runs: Dict[str, RelationRun] = {}
+        aggs: Dict[str, Dict[str, object]] = {}
+        rel_stats: Dict[str, Dict[str, object]] = {}
+        pim_s = 0.0
+        for rel_name, pred in spec.filters.items():
+            rel = self.relations[rel_name]
+            c, mask_reg, group_regs = self._compile_relation(rel, spec, pred)
+            cp = prog.compile_program(rel, c.program,
+                                      mask_outputs=(mask_reg,))
+            t0 = time.perf_counter()
+            res = prog.run_program(cp, rel)
+            dt = time.perf_counter() - t0
+            pim_s += dt
+            if group_regs:
+                aggs.update(self._finalize_aggs(group_regs, res.scalar,
+                                                res.scalar))
+            rel_stats[rel_name] = _single_relation_stats(c, cp, dt)
+            rel_runs[rel_name] = self._relation_run(
+                rel, rel_name, spec, pred, res.mask(mask_reg),
+                list(c.program), cp)
+        wall = time.perf_counter() - t_all
+        stats = _empty_batch_stats()
+        stats.update(n_queries=1, n_dispatches=len(rel_stats), pim_s=pim_s,
+                     wall_s=wall, relations=rel_stats)
+        self.last_batch_stats = stats
+        return QueryResult(spec=spec, engine=Engine.FUSED, aggregates=aggs,
+                           relations=rel_runs, pim_s=pim_s, wall_s=wall,
+                           batch_stats=stats)
+
+    # -- baseline (numpy scan oracle) ----------------------------------------
+    def _execute_baseline(self, spec: Q.QuerySpec) -> QueryResult:
+        """The paper's §5.5 in-memory column-store scan."""
+        t_all = time.perf_counter()
+        rel_runs: Dict[str, RelationRun] = {}
+        aggs: Dict[str, Dict[str, object]] = {}
+        for rel_name, pred in spec.filters.items():
+            cols = self.tables[rel_name]
+            n = len(next(iter(cols.values())))
+            mask = Q.eval_pred(cols, pred)
+            if spec.kind == "full" and rel_name == spec.agg_relation:
+                for label, gpred in (spec.groups or [("all", None)]):
+                    gmask = (mask if gpred is None
+                             else mask & Q.eval_pred(cols, gpred))
+                    aggs[label] = {a.name: Q.eval_aggregate(cols, gmask, a)
+                                   for a in spec.aggregates}
+            rel_runs[rel_name] = RelationRun(
+                n_records=n, mask=mask, trace=[],
+                selectivity=float(mask.mean()) if mask.size else 0.0,
+                filter_attr_bits=[], filter_attr_sels=[], agg_attr_bits=[])
+        return QueryResult(spec=spec, engine=Engine.ORACLE,
+                           aggregates=aggs, relations=rel_runs,
+                           wall_s=time.perf_counter() - t_all)
+
+
+def _empty_batch_stats() -> Dict[str, object]:
+    return {"n_queries": 0, "n_dispatches": 0, "pim_s": 0.0,
+            "demux_s": 0.0, "host_s": 0.0, "wall_s": 0.0, "relations": {}}
+
+
+def _single_relation_stats(c: Compiler, cp: prog.CompiledProgram,
+                           pim_s: float) -> Dict[str, object]:
+    """Per-relation stats of one single-query launch (zero dedup, one
+    program), plus the tape's length and slot count."""
+    n = len(c.program)
+    return {"n_programs": 1, "instrs_unlinked": n, "instrs_linked": n,
+            "instrs_deduped": 0,
+            "plane_reads": cp.total_plane_reads,
+            "agg_plane_reads": cp.agg_plane_reads,
+            "source_plane_reads": cp.source_plane_reads,
+            "linked_key": None, "pim_s": pim_s,
+            "tape_len": len(cp.tape), "n_slots": cp.tape.n_slots}
+
+
+def avg_value(pair) -> Optional[float]:
+    """Finalize an exact avg (sum, count) pair into a float; an empty
+    group (``None``) stays ``None``."""
+    if pair is None:
+        return None
+    s, c = pair
+    return s / c
+
+
+def predicate_attrs_of_expr(e) -> List[str]:
+    from .compiler import Col, Mul, AddE, RSubImm, Lit
+    out: List[str] = []
+
+    def walk(x):
+        if isinstance(x, Col):
+            out.append(x.name)
+        elif isinstance(x, (Mul, AddE)):
+            walk(x.a)
+            if not isinstance(x.b, Lit):
+                walk(x.b)
+        elif isinstance(x, RSubImm):
+            walk(x.e)
+
+    walk(e)
+    return list(dict.fromkeys(out))
+
+
+def _conjunct_selectivities(cols, pred) -> List[float]:
+    """Per-conjunct pass fractions in evaluation order (baseline model)."""
+    conjs = list(pred.ps) if isinstance(pred, And) else [pred]
+    return [float(Q.eval_pred(cols, c).mean()) for c in conjs]

@@ -1,0 +1,137 @@
+"""Port: the whole filter/aggregate slice, and the guards around it.
+
+All 19 TPC-H specs (``spec.filter_only()``) through the port's
+``PimDatabase.execute`` on the CPU (the kernel's plain version) equal the
+reference's FUSED ``execute`` and the port's ORACLE — every mask and
+aggregate exactly. The guards: the port imports neither ``jax`` nor
+``repro``; the default device is CUDA and never silently the CPU; what is
+not ported yet raises instead of running anything else.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.db import database as tdb
+from repro_torch.db import queries as tq
+from repro_torch.db import tpch as ttpch
+
+SF, SEED = 0.002, 123
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def tables():
+    return ttpch.generate(sf=SF, seed=SEED)
+
+
+@pytest.fixture(scope="module")
+def port_db(tables):
+    return tdb.PimDatabase(tables, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ref_db(tables):
+    pytest.importorskip("jax")
+    from repro.db import database as rdb
+    return rdb.PimDatabase(tables)
+
+
+@pytest.mark.parametrize("qname", [q.name for q in tq.all_queries()])
+def test_slice_matches_reference_and_oracle(port_db, ref_db, qname):
+    from repro.db import queries as rq
+    spec = tq.get_query(qname).filter_only()
+    fused = port_db.execute(spec)
+    oracle = port_db.execute(spec, engine="oracle")
+    ref = ref_db.execute(rq.get_query(qname).filter_only())
+    assert fused.engine is tdb.Engine.FUSED
+    assert oracle.engine is tdb.Engine.ORACLE
+    assert list(fused.relations) == list(spec.filters)
+    for rel in spec.filters:
+        np.testing.assert_array_equal(fused.relations[rel].mask,
+                                      oracle.relations[rel].mask, rel)
+        np.testing.assert_array_equal(fused.relations[rel].mask,
+                                      ref.relations[rel].mask, rel)
+        f, r = fused.relations[rel], ref.relations[rel]
+        assert (f.agg_plane_reads, f.agg_plane_reads_ungrouped,
+                f.n_reduce_jobs) == (r.agg_plane_reads,
+                                     r.agg_plane_reads_ungrouped,
+                                     r.n_reduce_jobs)
+        assert f.filter_attr_bits == r.filter_attr_bits
+        assert f.filter_attr_sels == r.filter_attr_sels
+        assert [i.cycles() for i in f.trace] == [i.cycles() for i in r.trace]
+    assert fused.aggregates == oracle.aggregates == ref.aggregates
+    stats = fused.batch_stats
+    assert stats["n_dispatches"] == len(spec.filters)
+    for rel, st in stats["relations"].items():
+        assert st["plane_reads"] == \
+            ref.batch_stats["relations"][rel]["plane_reads"]
+        assert 0 < st["n_slots"] <= st["tape_len"]
+
+
+def test_empty_group_aggregates_are_none(port_db):
+    """An empty selection: avg, min and max come back as None, sums and
+    counts as 0 — on FUSED and ORACLE alike."""
+    from repro_torch.db.compiler import Agg, Cmp, Col, Lit
+    spec = tq.QuerySpec(
+        "Qempty", "full",
+        filters={"lineitem": Cmp("gt", Col("l_quantity"), Lit(1000))},
+        agg_relation="lineitem",
+        aggregates=[Agg("avg", Col("l_quantity"), "a"),
+                    Agg("min", Col("l_quantity"), "mn"),
+                    Agg("max", Col("l_quantity"), "mx"),
+                    Agg("sum", Col("l_quantity"), "s"),
+                    Agg("count", None, "c")])
+    want = {"all": {"a": None, "mn": None, "mx": None, "s": 0, "c": 0}}
+    assert port_db.execute(spec).aggregates == want
+    assert port_db.execute(spec, engine=tdb.Engine.ORACLE).aggregates == want
+    assert tdb.avg_value(None) is None and tdb.avg_value((7, 2)) == 3.5
+
+
+# --------------------------------------------------------------------------
+# Guards
+# --------------------------------------------------------------------------
+def _port_sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_sources()
+    assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), \
+                    f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
+
+
+def test_default_device_is_cuda(tables):
+    """No device means CUDA: without one, construction raises instead of
+    quietly running on the CPU."""
+    if torch.cuda.is_available():
+        assert tdb.PimDatabase(tables).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            tdb.PimDatabase(tables)
+
+
+def test_unported_scopes_raise(port_db):
+    host_specs = [q for q in tq.all_queries() if q.host is not None]
+    assert {q.name for q in host_specs} == {"Q3", "Q5", "Q10", "Q12", "Q14",
+                                            "Q19"}
+    for spec in host_specs:
+        for engine in tdb.Engine:
+            with pytest.raises(NotImplementedError, match="A6"):
+                port_db.execute(spec, engine=engine)
+    with pytest.raises(NotImplementedError, match="A7"):
+        port_db.execute([tq.get_query("Q6"), tq.get_query("Q1")])

@@ -1,0 +1,392 @@
+"""Port: the fused-program lowering and its kernel module.
+
+* ``fused_program_torch`` (the kernel's plain version) equals the
+  reference Pallas kernel ``repro.kernels.program.fused_program`` in
+  interpret mode — masks, popcount totals and combined MIN/MAX, exactly.
+* An executor written here, with the CUDA kernel's memory model (a fixed
+  ``[slot][block][thread]`` word array written in place, tail words
+  guarded), runs every recorded tape and equals the plain version: this
+  checks the tape itself (folding, dead-entry removal, slot reuse).
+* The planner counters equal the reference's.
+* The wrapper never falls back: a CUDA tensor without a kernel raises.
+* On a card, the kernel equals the plain version (``cuda`` marker).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine as te
+from repro_torch.core import program as tprog
+from repro_torch.db import database as tdb
+from repro_torch.db import queries as tq
+from repro_torch.db import tpch as ttpch
+from repro_torch.kernels import program as kp
+
+SF, SEED = 0.002, 123
+
+
+@pytest.fixture(scope="module")
+def tables():
+    return ttpch.generate(sf=SF, seed=SEED)
+
+
+@pytest.fixture(scope="module")
+def tdb_cpu(tables):
+    return tdb.PimDatabase(tables, device="cpu")
+
+
+def _minmax_specs(Q=tq, C=None):
+    """The hand-built MIN/MAX programs: over a derived expression, and
+    over an empty selection (found flag -> None). ``Q``/``C``: the
+    queries and compiler modules whose AST classes to build them from."""
+    if C is None:
+        from repro_torch.db import compiler as C
+    return [
+        Q.QuerySpec(
+            "Qmm_expr", "full",
+            filters={"lineitem": C.Cmp("lt", C.Col("l_quantity"),
+                                       C.Lit(10))},
+            agg_relation="lineitem",
+            aggregates=[C.Agg("max", C.Mul(C.Col("l_extendedprice"),
+                                           C.RSubImm(100,
+                                                     C.Col("l_discount"))),
+                              "mx"),
+                        C.Agg("min", C.Col("l_quantity"), "mn")]),
+        Q.QuerySpec(
+            "Qmm_empty", "full",
+            filters={"customer": C.Cmp("gt", C.Col("c_acctbal"),
+                                       C.Lit(1 << 40))},
+            agg_relation="customer",
+            aggregates=[C.Agg("min", C.Col("c_acctbal"), "mn"),
+                        C.Agg("max", C.Col("c_acctbal"), "mx"),
+                        C.Agg("sum", C.Col("c_acctbal"), "s"),
+                        C.Agg("count", None, "c")])]
+
+
+def _spec(name, Q=tq, C=None):
+    return {s.name: s for s in _minmax_specs(Q, C)}.get(name) or \
+        Q.get_query(name)
+
+
+def _compiled(db, spec):
+    """(relation, CompiledProgram) for every relation program of a spec."""
+    out = []
+    for rel_name, pred in spec.filters.items():
+        rel = db.relations[rel_name]
+        c, mask_reg, _ = db._compile_relation(rel, spec, pred)
+        out.append((rel, tprog.compile_program(rel, c.program,
+                                               mask_outputs=(mask_reg,))))
+    return out
+
+
+def _multi_tile():
+    """100,000 records: 4096 words, several blocks and Pallas tiles."""
+    rng = np.random.default_rng(7)
+    n = 100_000
+    return {"k": rng.integers(0, 1 << 12, n), "v": rng.integers(0, 1 << 9, n)}
+
+
+def _multi_tile_program(rel, C=None):
+    """SUM/COUNT/MAX where 500 <= k <= 3000, built with compiler module
+    ``C`` (the port's by default)."""
+    if C is None:
+        from repro_torch.db import compiler as C
+    c = C.Compiler(rel)
+    m = c.compile_filter(C.Between(C.Col("k"), 500, 3000),
+                         with_transform=False)
+    c.compile_aggregates(m, [C.Agg("sum", C.Col("v"), "s"),
+                             C.Agg("count", None, "c"),
+                             C.Agg("max", C.Col("v"), "mx")])
+    return c.program, (m,)
+
+
+# --------------------------------------------------------------------------
+# Plain version vs the reference Pallas kernel (interpret mode)
+# --------------------------------------------------------------------------
+def _reference_kernel(rrel, instrs, mask_outputs):
+    import jax.numpy as jnp
+    from repro.core import program as rprog
+    from repro.core.distributed import combine_minmax_candidates
+    from repro.kernels import program as rk
+    cp = rprog.compile_program(rrel, instrs, mask_outputs=mask_outputs,
+                               backend="pallas", interpret=True)
+    attr_rows, rows, r0 = {}, [], 0
+    for a in cp.analysis.source_attrs:
+        p = rrel.planes[a]
+        attr_rows[a] = (r0, r0 + p.shape[0])
+        rows.append(p)
+        r0 += p.shape[0]
+    stacked = jnp.concatenate(rows + [rrel.valid[None]], axis=0)
+    frees = rprog.frees_by_instr(len(cp.instrs), cp.plan.last_use,
+                                 frozenset(mask_outputs))
+    masks, pc, mm = rk.fused_program(
+        stacked, instrs=cp.instrs, attr_rows=attr_rows, valid_row=r0,
+        mask_outputs=mask_outputs, sum_jobs=cp.plan.sum_jobs,
+        mm_jobs=cp.plan.mm_jobs, frees=frees,
+        arith_batches=cp.arith.batches, n_pc_cols=cp.plan.n_pc_cols,
+        n_mm_cols=cp.plan.n_mm_cols, interpret=True)
+    minmax = {}
+    for mj in cp.plan.mm_jobs:
+        bits, found = combine_minmax_candidates(
+            mm[:, mj.col_start:mj.col_start + mj.width],
+            mm[:, mj.col_start + mj.width] != 0, mj.is_max)
+        minmax[mj.dest] = (np.asarray(bits).tolist(), bool(found))
+    return (np.asarray(masks)[:len(mask_outputs)],
+            np.asarray(pc)[0, :cp.plan.n_pc_cols], minmax)
+
+
+def _port_plain(trel, cp):
+    masks, pc, mm = kp.fused_program_torch(tprog.stack_sources(cp, trel),
+                                           cp.tape)
+    minmax = {}
+    for mj in cp.plan.mm_jobs:
+        bits, found = tprog.combine_minmax_candidates(
+            mm[:, mj.col_start:mj.col_start + mj.width],
+            mm[:, mj.col_start + mj.width] != 0, mj.is_max)
+        minmax[mj.dest] = (bits.tolist(), bool(found))
+    return te.to_words(masks), pc.numpy(), minmax
+
+
+def _assert_plain_matches_reference(trel, tinstrs, rrel, rinstrs, outs):
+    cp = tprog.compile_program(trel, tinstrs, mask_outputs=outs)
+    t_masks, t_pc, t_mm = _port_plain(trel, cp)
+    r_masks, r_pc, r_mm = _reference_kernel(rrel, tuple(rinstrs), outs)
+    np.testing.assert_array_equal(t_masks, r_masks)
+    np.testing.assert_array_equal(t_pc, r_pc)
+    assert t_mm == r_mm
+    return t_mm
+
+
+@pytest.mark.parametrize("qname", ["Q6", "Q22_sub", "Qmm_expr",
+                                   "Qmm_empty"])
+def test_plain_matches_reference_pallas_kernel(tables, tdb_cpu, qname):
+    pytest.importorskip("jax")
+    from repro.db import compiler as rc_mod, database as rdb, queries as rq
+    rdb_ = rdb.PimDatabase(tables)
+    spec, rspec = _spec(qname), _spec(qname, rq, rc_mod)
+    for rel_name, pred in spec.filters.items():
+        tc, tmask, _ = tdb_cpu._compile_relation(
+            tdb_cpu.relations[rel_name], spec, pred)
+        rc, rmask, _ = rdb_._compile_relation(
+            rdb_.relations[rel_name], rspec, rspec.filters[rel_name])
+        mm = _assert_plain_matches_reference(
+            tdb_cpu.relations[rel_name], tc.program,
+            rdb_.relations[rel_name], rc.program, (tmask,))
+        if qname == "Qmm_empty":
+            assert mm and all(found is False for _, found in mm.values())
+        if qname == "Qmm_expr":
+            assert mm and all(found for _, found in mm.values())
+
+
+def test_plain_matches_reference_multi_tile():
+    pytest.importorskip("jax")
+    from repro.core import engine as reng
+    from repro.db import compiler as rc_mod
+    cols = _multi_tile()
+    trel = te.PimRelation.from_columns("t", cols, device="cpu")
+    rrel = reng.PimRelation.from_columns("t", cols)
+    assert trel.layout.n_words == 4096
+    tinstrs, outs = _multi_tile_program(trel)
+    rinstrs, _ = _multi_tile_program(rrel, rc_mod)
+    cp = tprog.compile_program(trel, tinstrs, mask_outputs=outs)
+    assert -(-trel.layout.n_words // cp.tape.block) > 1     # several blocks
+    _assert_plain_matches_reference(trel, tinstrs, rrel, rinstrs, outs)
+
+
+def test_multi_tile_program_end_to_end():
+    """run_program over several blocks: masks land in the right words,
+    per-block popcounts and MIN/MAX candidates combine exactly."""
+    cols = _multi_tile()
+    rel = te.PimRelation.from_columns("t", cols, device="cpu")
+    instrs, (m,) = _multi_tile_program(rel)
+    cp = tprog.compile_program(rel, instrs, mask_outputs=(m,))
+    res = tprog.run_program(cp, rel)
+    sel = (cols["k"] >= 500) & (cols["k"] <= 3000)
+    np.testing.assert_array_equal(res.mask(m), sel)
+    scalars = {ins.dest: res.scalar(ins.dest) for ins in instrs
+               if ins.kind in ("ReduceSum", "ReduceMinMax")}
+    assert sorted(scalars.values()) == sorted(
+        [int(cols["v"][sel].sum()), int(sel.sum()),
+         int(cols["v"][sel].max())])
+
+
+# --------------------------------------------------------------------------
+# The tape under the kernel's memory model
+# --------------------------------------------------------------------------
+def run_tape_like_kernel(stacked: np.ndarray, tape: kp.Tape):
+    """Execute a tape the way ``csrc/fused_program.cu`` does: blocks of
+    ``tape.block`` threads, one word column per thread, physical slots
+    in a fixed array written in place, words past W zero and guarded out
+    of every output."""
+    rows, w = stacked.shape
+    t = tape.block
+    n_blocks = -(-w // t)
+    src = np.zeros((rows, n_blocks * t), np.uint32)
+    src[:, :w] = stacked
+    inb = (np.arange(n_blocks * t) < w).reshape(n_blocks, t)
+    S = np.zeros((tape.n_slots, n_blocks, t), np.uint32)
+    masks = np.zeros((tape.n_masks, w), np.uint32)
+    pc = np.zeros(tape.n_pc, np.int64)
+    mm = np.zeros((n_blocks, tape.n_mm), np.int32)
+    for op, d, a, b, c in tape.ops.tolist():
+        if op == kp.LOAD:
+            S[d] = src[a].reshape(n_blocks, t)
+        elif op == kp.STORE:
+            masks[c] = S[a].reshape(-1)[:w]
+        elif op == kp.CONST0:
+            S[d] = 0
+        elif op == kp.CONST1:
+            S[d] = 0xFFFFFFFF
+        elif op == kp.NOT:
+            S[d] = ~S[a]
+        elif op == kp.AND:
+            S[d] = S[a] & S[b]
+        elif op == kp.OR:
+            S[d] = S[a] | S[b]
+        elif op == kp.XOR:
+            S[d] = S[a] ^ S[b]
+        elif op == kp.POPC:
+            pc[c] += int(np.bitwise_count(S[a] & S[b])[inb].sum())
+        elif op in (kp.MAXSTEP, kp.MINSTEP):
+            cand = S[a].copy()
+            x = cand & (S[b] if op == kp.MAXSTEP else ~S[b])
+            x[~inb] = 0
+            has = (x != 0).any(axis=1)
+            S[d] = np.where(has[:, None], x, cand)
+            mm[:, c] = has if op == kp.MAXSTEP else ~has
+        elif op == kp.ANY:
+            mm[:, c] = ((S[a] != 0) & inb).any(axis=1)
+        else:
+            raise AssertionError(f"unknown opcode {op}")
+    return masks, pc, mm
+
+
+def _assert_tape_matches_plain(stacked: torch.Tensor, tape: kp.Tape):
+    want = run_tape_like_kernel(te.to_words(stacked), tape)
+    got = kp.fused_program_torch(stacked, tape)
+    np.testing.assert_array_equal(te.to_words(got[0]), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+
+
+@pytest.mark.parametrize("qname", [q.name for q in tq.all_queries()])
+def test_tape_executor_matches_plain(tdb_cpu, qname):
+    for rel, cp in _compiled(tdb_cpu, tq.get_query(qname)):
+        tape = cp.tape
+        assert tape.n_rows == cp.source_plane_reads + 1
+        assert 0 < tape.n_slots <= len(tape)
+        assert (tape.ops[:, 0] == kp.STORE).sum() == tape.n_masks == 1
+        _assert_tape_matches_plain(tprog.stack_sources(cp, rel), tape)
+
+
+def test_tape_tail_words_are_guarded(tdb_cpu):
+    """A word count that no block size divides: the tail block's missing
+    words must reach no mask, popcount or MIN/MAX output."""
+    rel, cp = _compiled(tdb_cpu, _spec("Qmm_expr"))[0]
+    stacked = tprog.stack_sources(cp, rel)[:, :1000].contiguous()
+    assert 1000 % cp.tape.block
+    _assert_tape_matches_plain(stacked, cp.tape)
+
+
+def test_tape_folds_constants_and_reuses_slots(tdb_cpu):
+    """Q1's tape: immediates never reach the tape (no CONST entries), the
+    slot count stays far below the entry count, and every source plane
+    is loaded at most once."""
+    rel, cp = _compiled(tdb_cpu, tq.get_query("Q1"))[0]
+    ops = cp.tape.ops
+    assert not np.isin(ops[:, 0], (kp.CONST0, kp.CONST1)).any()
+    loads = ops[ops[:, 0] == kp.LOAD, 2]
+    assert len(loads) == len(set(loads.tolist()))
+    assert cp.tape.n_slots < len(cp.tape) // 5
+    assert (ops[:, 0] == kp.POPC).sum() <= cp.plan.n_pc_cols
+
+
+# --------------------------------------------------------------------------
+# Planner counters
+# --------------------------------------------------------------------------
+def test_counters_match_reference():
+    pytest.importorskip("jax")
+    from repro.core import program as rprog
+    from repro.db import database as rdb, queries as rq
+    tables = ttpch.generate(sf=0.005, seed=SEED)
+    tdb_ = tdb.PimDatabase(tables, device="cpu")
+    rdb_ = rdb.PimDatabase(tables)
+    want = {"Q6": {"peak_live_planes": 29, "total_reg_planes": 38,
+                   "paper_cycles": 68609},
+            "Q1": {"agg_plane_reads": 110, "agg_plane_reads_ungrouped": 678,
+                   "n_reduce_jobs": 11, "arith_depth_csa": 85,
+                   "arith_depth_ripple": 474}}
+    for qname, counters in want.items():
+        spec = tq.get_query(qname)
+        (rel, cp), = _compiled(tdb_, spec)
+        rrel = rdb_.relations[rel.name]
+        rspec = rq.get_query(qname)
+        rc, rmask, _ = rdb_._compile_relation(rrel, rspec,
+                                              rspec.filters[rel.name])
+        rcp = rprog.compile_program(rrel, rc.program, mask_outputs=(rmask,))
+        for name, value in counters.items():
+            got = getattr(cp, name)
+            got = got() if callable(got) else got
+            ref = getattr(rcp, name)
+            ref = ref() if callable(ref) else ref
+            assert got == ref == value, (qname, name, got, ref)
+        assert cp.n_dispatches == 1
+        assert cp.source_plane_reads == rcp.source_plane_reads
+        assert [(j.attr, j.masks, j.width, j.exec_at, j.col_start)
+                for j in cp.plan.sum_jobs] == \
+            [(j.attr, j.masks, j.width, j.exec_at, j.col_start)
+             for j in rcp.plan.sum_jobs]
+        assert cp.arith.batches == rcp.arith.batches
+
+
+# --------------------------------------------------------------------------
+# No fallback: a CUDA tensor launches the kernel or raises
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("broken", ["no_nvcc", "loader"])
+def test_wrapper_raises_without_kernel(tdb_cpu, monkeypatch, tmp_path,
+                                       broken):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    rel, cp = _compiled(tdb_cpu, tq.get_query("Q6"))[0]
+    monkeypatch.setattr(kp, "_lib", None)
+    if broken == "no_nvcc":
+        monkeypatch.setattr(kp, "_BUILD_DIR", tmp_path)
+        monkeypatch.setenv("PATH", str(tmp_path))
+        monkeypatch.delenv("CUDA_HOME", raising=False)
+        match = "nvcc not found"
+    else:
+        def fail():
+            raise OSError("cannot load the fused_program library")
+        monkeypatch.setattr(kp, "_library", fail)
+        match = "cannot load"
+    with FakeTensorMode():
+        stacked = torch.empty((cp.tape.n_rows, rel.layout.n_words),
+                              dtype=torch.int32, device="cuda")
+    assert stacked.device.type == "cuda"
+    before = kp.launches
+    with pytest.raises((RuntimeError, OSError), match=match):
+        kp.fused_program(stacked, cp.tape)
+    assert kp.launches == before
+
+
+# --------------------------------------------------------------------------
+# On the card: the kernel against its plain version
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card(tdb_cpu):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    cases = [cp_rel for q in tq.all_queries() + _minmax_specs()
+             for cp_rel in _compiled(tdb_cpu, q)]
+    for rel, cp in cases:
+        stacked = tprog.stack_sources(cp, rel).cuda()
+        for x in (stacked, stacked[:, :1000].contiguous()):
+            before = kp.launches
+            got = kp.fused_program(x, cp.tape)
+            want = kp.fused_program_torch(x, cp.tape)
+            torch.cuda.synchronize()
+            assert kp.launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="rows"):
+        kp.fused_program(stacked[1:], cp.tape)
