@@ -5,23 +5,38 @@
 Phases (any failure exits non-zero before the last line):
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile ``src/repro_torch/kernels/csrc/fused_program.cu`` with
-   nvcc from the checkout's sources; print the seconds and the compiler's
-   resource report.
-3. Kernel vs plain, TPC-H SF 0.01: the CUDA kernel equals its plain
-   PyTorch version (``fused_program_torch``) bit for bit on all 34
-   relation programs of the 19 TPC-H specs, on two MIN/MAX programs (over
-   a derived expression; over an empty selection) and on a multi-block
-   relation whose record count is a multiple of neither 32 nor the block.
-4. Main path, TPC-H SF 1: ``PimDatabase(tables).execute(spec)`` for the
-   19 ``filter_only()`` specs and the two MIN/MAX specs on the FUSED
-   engine, every mask and aggregate equal to ``Engine.ORACLE``; the
-   kernel's launch count must equal the number of relation programs run.
-   Then, for each of those programs at its SF 1 shape, the kernel against
-   its plain version bit for bit (masks, popcounts and per-block MIN/MAX
-   candidates), and per query: the warm median of ``execute`` and the
-   kernel's own time (CUDA events), the stacking copy, the bound and what
-   sets it, and the tapes' length and slot count.
+2. Build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
+   from the checkout's sources, all at once; print the seconds and the
+   compiler's resource reports.
+3. Kernels vs plain, TPC-H SF 0.01, bit for bit:
+   ``fused_program`` against ``fused_program_torch`` on all 34 relation
+   programs of the 19 TPC-H specs, on two MIN/MAX programs (over a
+   derived expression; over an empty selection) and on a multi-block
+   relation whose record count is a multiple of neither 32 nor the
+   block; ``materialize`` against ``materialize_torch`` (the count and
+   the count prefix) on the 16 ``Materialize`` programs of the six
+   host-stage specs and on random plane stacks of widths 1, 7, 31 and 32
+   at mask densities 0, 0.001, 0.5 and 1; ``bitpack``/``bitunpack``
+   against their plain versions on random 0/1 data and all-ones words.
+   The word counts there are not a multiple of any kernel's block.
+4. Main paths, TPC-H SF 1, each driven with the launch counts set to 0
+   just before it and read just after:
+   a. ``PimDatabase(tables).execute(spec)`` for the 19 ``filter_only()``
+      specs and the two MIN/MAX specs on FUSED, every mask and aggregate
+      equal to ``Engine.ORACLE``; ``fused_program`` launches once per
+      relation program;
+   b. ``execute(spec)`` end to end for the six host-stage specs: result
+      rows and materialized record counts equal ``Engine.ORACLE``'s;
+      ``fused_program`` and ``materialize`` each launch once per relation
+      program (16);
+   c. the column transform of Q6's lineitem mask through
+      ``kernels.ops.unpack_mask``/``pack_mask``: the unpacked bits equal
+      the ORACLE's selection and packing them gives the mask back.
+   Then every kernel against its plain version bit for bit at those SF 1
+   shapes, and the times: per query the warm median of ``execute``; per
+   kernel its device time (CUDA events, cold L2, the launch queued behind
+   a spin kernel), one call's time with the host's launch time in it,
+   the plain version's time, the bound and what sets it.
 5. One ``{"kernels": [...]}`` JSON line, then ``{"ok": true, ...}`` last.
 
 Seeds fix the data; nothing is read from outside the checkout.
@@ -47,8 +62,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 # AND/OR/XOR and integer add 64, population count 16.
 LOGIC_PER_CLOCK_SM = 64
 POPC_PER_CLOCK_SM = 16
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_program.cu"
-REPLACES = "src/repro/kernels/program.py:147"
+CSRC = "src/repro_torch/kernels/csrc/"
+HOST_SPECS = ("Q3", "Q5", "Q10", "Q12", "Q14", "Q19")
+N_HOST_PROGRAMS = 16
+# A spin of about 2.5 ms at the H100's 1,980 MHz: long enough for the host
+# to queue a wrapper's launches behind it (tens of microseconds).
+AHEAD_CYCLES = 5_000_000
 
 
 def fail(msg: str) -> None:
@@ -56,16 +75,22 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
+def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None,
+            ahead: bool = False) -> float:
     """Median milliseconds of ``fn`` between two CUDA events, after one
     warm-up call; ``flush`` is overwritten before each timed call so the
-    50 MB L2 cache starts cold."""
+    50 MB L2 cache starts cold. Without ``ahead`` the interval includes
+    the host's time to launch (the device waits for it); with ``ahead`` a
+    spin kernel runs first, so ``fn``'s launches are queued before the
+    start event is reached and the interval is the device's own time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if ahead:
+            torch.cuda._sleep(AHEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -218,11 +243,11 @@ def phase_kernel_vs_plain() -> int:
     return worst
 
 
-def phase_main_path(peaks):
+def phase_main_path(peaks, flush):
     """The 19 specs and the two MIN/MAX specs at SF 1 on FUSED, checked
     against ORACLE; then kernel vs plain at every program's SF 1 shape and
-    the per-query and per-kernel timings. Returns the kernels entry."""
-    from repro_torch.core import program as prog
+    the per-query and per-kernel timings. Returns the database and the
+    path's fused_program record."""
     from repro_torch.db import database as D
     from repro_torch.db import queries as Q
     from repro_torch.db import tpch
@@ -261,36 +286,16 @@ def phase_main_path(peaks):
           f"{launches} launches for {n_programs} relation programs",
           flush=True)
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     per_prog = {}
     worst = 0
     for name, rel, cp in programs(db, run):
-        stacked = prog.stack_sources(cp, rel)
-        diff = max_abs_diff(kp.fused_program(stacked, cp.tape),
-                            kp.fused_program_torch(stacked, cp.tape))
-        if diff:
-            fail(f"kernel != plain on {name}/{rel.name} at SF {MAIN_SF}: "
-                 f"max abs diff {diff}")
-        worst = max(worst, diff)
-        w = stacked.shape[1]
-        logic, popc = cp.tape.word_ops()
-        per_prog.setdefault(name, []).append({
-            "relation": rel.name,
-            "kernel_ms": cuda_ms(lambda: kp.fused_program(stacked, cp.tape),
-                                 5, flush),
-            "plain_ms": cuda_ms(
-                lambda: kp.fused_program_torch(stacked, cp.tape), 2),
-            "stack_ms": cuda_ms(lambda: prog.stack_sources(cp, rel), 5,
-                                flush),
-            "bytes": (cp.tape.n_rows + cp.tape.n_masks) * w * 4,
-            "logic": logic * w, "popc": popc * w,
-            "tape_len": len(cp.tape), "n_slots": cp.tape.n_slots,
-            "block": cp.tape.block})
+        per_prog.setdefault(name, []).append(fused_timing(cp, rel, flush))
+        worst = max(worst, per_prog[name][-1]["diff"])
     print(f"phase 4 ok: kernel == plain on {sum(map(len, per_prog.values()))}"
           f" programs at SF {MAIN_SF}", flush=True)
 
-    print("query   execute_ms  kernel_ms busy_%  stack_ms   plain_ms  "
-          "bound_ms bound_by   tape_len/n_slots/block per relation")
+    print("query   execute_ms  kernel_ms   call_ms busy_%  stack_ms   "
+          "plain_ms  bound_ms bound_by   tape_len/n_slots/block per relation")
     for spec in run:
         ps = per_prog[spec.name]
         exec_ms = cuda_ms(lambda: db.execute(spec), 3)
@@ -299,6 +304,7 @@ def phase_main_path(peaks):
                   for p in ps]
         by = {b for _, b in bounds}
         print(f"{spec.name:9s} {exec_ms:11.3f} {kernel_ms:10.4f} "
+              f"{sum(p['call_ms'] for p in ps):9.4f} "
               f"{100 * kernel_ms / exec_ms:6.2f} "
               f"{sum(p['stack_ms'] for p in ps):9.4f} "
               f"{sum(p['plain_ms'] for p in ps):10.3f} "
@@ -310,16 +316,322 @@ def phase_main_path(peaks):
         host_profile(db, next(s for s in specs if s.name == name))
 
     progs = [p for ps in per_prog.values() for p in ps]
+    print_fused_total(f"the {len(progs)} programs of path a", progs, peaks)
+    return db, {"launches": launches, "max_abs_err": worst, "progs": progs}
+
+
+def fused_totals(progs, peaks) -> dict:
+    """``fused_program``'s summed times and bound over ``progs``."""
     total_s, total_by = bound_s(sum(p["bytes"] for p in progs),
                                 sum(p["logic"] for p in progs),
                                 sum(p["popc"] for p in progs), peaks)
-    return {"name": "fused_program", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": REPLACES,
-            "launches": launches, "max_abs_err": worst,
-            "ms": sum(p["kernel_ms"] for p in progs),
+    return {"ms": sum(p["kernel_ms"] for p in progs),
             "plain_ms": sum(p["plain_ms"] for p in progs),
-            "bound_ms": total_s * 1e3, "bound_by": total_by,
+            "bound_ms": total_s * 1e3, "bound_by": total_by}
+
+
+def print_fused_total(what, progs, peaks) -> None:
+    t = fused_totals(progs, peaks)
+    print(f"fused_program over {what}: kernel {t['ms']:.4f} ms, call "
+          f"{sum(p['call_ms'] for p in progs):.4f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
+          f"({t['bound_by']})", flush=True)
+
+
+def fused_entry(paths, peaks) -> dict:
+    """The ``fused_program`` kernels entry over the main paths' programs."""
+    return {"name": "fused_program", "route": "cuda",
+            "source": CSRC + "fused_program.cu",
+            "replaces": "src/repro/kernels/program.py:147",
+            "launches": sum(path["launches"] for path in paths),
+            "max_abs_err": max(path["max_abs_err"] for path in paths),
+            **fused_totals([p for path in paths for p in path["progs"]],
+                           peaks),
             "library_ms": None}
+
+
+def fused_timing(cp, rel, flush) -> dict:
+    """``fused_program`` at one program's shape: kernel vs plain bit for
+    bit (fails otherwise), its times, bytes and operations."""
+    from repro_torch.core import program as prog
+    from repro_torch.kernels import program as kp
+    stacked = prog.stack_sources(cp, rel)
+    diff = max_abs_diff(kp.fused_program(stacked, cp.tape),
+                        kp.fused_program_torch(stacked, cp.tape))
+    if diff:
+        fail(f"fused_program != plain on {rel.name} at SF {MAIN_SF}: "
+             f"max abs diff {diff}")
+    w = stacked.shape[1]
+    logic, popc = cp.tape.word_ops()
+    return {
+        "relation": rel.name, "diff": diff,
+        "kernel_ms": cuda_ms(lambda: kp.fused_program(stacked, cp.tape), 5,
+                             flush, ahead=True),
+        "call_ms": cuda_ms(lambda: kp.fused_program(stacked, cp.tape), 5,
+                           flush),
+        "plain_ms": cuda_ms(lambda: kp.fused_program_torch(stacked, cp.tape),
+                            2),
+        "stack_ms": cuda_ms(lambda: prog.stack_sources(cp, rel), 5, flush,
+                            ahead=True),
+        "bytes": (cp.tape.n_rows + cp.tape.n_masks) * w * 4,
+        "logic": logic * w, "popc": popc * w,
+        "tape_len": len(cp.tape), "n_slots": cp.tape.n_slots,
+        "block": cp.tape.block}
+
+
+def host_programs(db):
+    """(query, relation, CompiledProgram, Materialize instruction) for each
+    relation program of the six host-stage specs, compiled as
+    ``PimDatabase.execute`` compiles them."""
+    from repro_torch.core import program as prog
+    from repro_torch.db import exec as E
+    from repro_torch.db import queries as Q
+    from repro_torch.db.compiler import Compiler
+    out = []
+    for name in HOST_SPECS:
+        for rel_name, pred, cols in E.split_query(Q.get_query(name))[0]:
+            rel = db.relations[rel_name]
+            c = Compiler(rel)
+            m = (c.compile_filter(pred, with_transform=False)
+                 if pred is not None else c.compile_scan_all())
+            c.compile_materialize(m, cols)
+            cp = prog.compile_program(rel, c.program, mask_outputs=())
+            out.append((name, rel, cp, c.program[-1]))
+    if len(out) != N_HOST_PROGRAMS:
+        fail(f"expected {N_HOST_PROGRAMS} Materialize programs, got "
+             f"{len(out)}")
+    return out
+
+
+def materialize_inputs(rel, cp, ins):
+    """The materialize kernel's inputs in a program: its attributes'
+    planes and the mask the program kernel stores (or the valid plane)."""
+    from repro_torch.core import program as prog
+    from repro_torch.kernels import program as kp
+    masks, _, _ = kp.fused_program(prog.stack_sources(cp, rel), cp.tape)
+    mask = (rel.valid if ins.mask == "__valid__"
+            else masks[cp.kernel_masks.index(ins.mask)])
+    return [rel.planes[a] for a in ins.attrs], mask
+
+
+def check_materialize(what, planes, mask) -> tuple[int, int]:
+    """materialize vs materialize_torch on the card: the count and the
+    count prefix, bit for bit. Returns (max abs diff, count)."""
+    from repro_torch.kernels import materialize as km
+    got, cnt = km.materialize(planes, mask)
+    want, wcnt = km.materialize_torch(planes, mask)
+    torch.cuda.synchronize()
+    n = int(wcnt)
+    if int(cnt) != n:
+        fail(f"materialize count {int(cnt)} != plain {n} on {what}")
+    diff = max_abs_diff([got[:, :n]], [want[:, :n]])
+    if diff:
+        fail(f"materialize != plain on {what}: max abs diff {diff}")
+    return diff, n
+
+
+def check_column_transform(what, words) -> int:
+    """bitunpack and bitpack vs their plain versions on ``words``; the
+    round trip must give the words back. Returns the max abs diff."""
+    from repro_torch.kernels import bitpack as kb
+    bits = kb.bitunpack(words)
+    packed = kb.bitpack(bits)
+    diff = max_abs_diff([bits, packed, packed],
+                        [kb.bitunpack_torch(words), kb.bitpack_torch(bits),
+                         words])
+    torch.cuda.synchronize()
+    if diff:
+        fail(f"bitpack/bitunpack != plain on {what}: max abs diff {diff}")
+    return diff
+
+
+def phase_new_kernels_vs_plain() -> tuple[int, int]:
+    """materialize, bitpack and bitunpack vs plain at SF 0.01 and on
+    random data. Returns (materialize, column transform) max abs diffs."""
+    from repro_torch.db import database as D
+    from repro_torch.db import tpch
+    from repro_torch.kernels import bitpack as kb
+
+    db = D.PimDatabase(tpch.generate(sf=SMOKE_SF, seed=SEED))
+    worst = 0
+    for name, rel, cp, ins in host_programs(db):
+        planes, mask = materialize_inputs(rel, cp, ins)
+        worst = max(worst, check_materialize(f"{name}/{rel.name}", planes,
+                                             mask)[0])
+    g = torch.Generator().manual_seed(SEED)
+    n_words = 100_003                  # a multiple of no block (256, 8)
+    for width in (1, 7, 31, 32):
+        planes = torch.randint(-(1 << 31), 1 << 31, (width, n_words),
+                               dtype=torch.int32, generator=g)
+        planes[-1, ::3] |= -(1 << 31)   # bit 31 set in every third word
+        for density in (0.0, 0.001, 0.5, 1.0):
+            bits = (torch.rand((n_words, 32), generator=g) < density)
+            mask = kb.bitpack_torch(bits.to(torch.int32))
+            for w in (n_words, 1):
+                worst = max(worst, check_materialize(
+                    f"random width {width} density {density} W={w}",
+                    [planes[:, :w].contiguous().cuda()],
+                    mask[:w].contiguous().cuda())[0])
+    col = 0
+    for what, words in (
+            ("random words", torch.randint(-(1 << 31), 1 << 31, (n_words,),
+                                           dtype=torch.int32, generator=g)),
+            ("all-ones words", torch.full((n_words,), -1,
+                                          dtype=torch.int32)),
+            ("3 words", torch.tensor([0, -1, -(1 << 31)],
+                                     dtype=torch.int32))):
+        col = max(col, check_column_transform(what, words.cuda()))
+    print(f"phase 3 ok: materialize == plain on {N_HOST_PROGRAMS} programs "
+          f"at SF {SMOKE_SF} and 32 random cases; bitpack/bitunpack == "
+          "plain on 3 cases", flush=True)
+    return worst, col
+
+
+def phase_host_path(db, peaks, flush):
+    """Path b: the six host-stage specs end to end at SF 1 against ORACLE,
+    their launches, then each kernel against plain at every program's
+    shape and the per-query timings. Returns (fused path record,
+    materialize entry)."""
+    from repro_torch.db import database as D
+    from repro_torch.db import queries as Q
+    from repro_torch.kernels import materialize as km
+    from repro_torch.kernels import program as kp
+
+    specs = [Q.get_query(n) for n in HOST_SPECS]
+    kp.launches = 0
+    km.launches = 0
+    results = [db.execute(s) for s in specs]
+    launches, mat_launches = kp.launches, km.launches
+    if (launches, mat_launches) != (N_HOST_PROGRAMS, N_HOST_PROGRAMS):
+        fail(f"host specs: fused_program launched {launches} and "
+             f"materialize {mat_launches} times for {N_HOST_PROGRAMS} "
+             "relation programs")
+    for spec, fused in zip(specs, results):
+        oracle = db.execute(spec, engine=D.Engine.ORACLE)
+        if not fused.rows or fused.rows != oracle.rows:
+            fail(f"{spec.name}: FUSED rows != ORACLE ({len(fused.rows)} vs "
+                 f"{len(oracle.rows)} rows)")
+        if fused.materialized_rows != oracle.materialized_rows:
+            fail(f"{spec.name}: materialized {fused.materialized_rows} != "
+                 f"ORACLE {oracle.materialized_rows}")
+    print(f"phase 4b ok: {len(specs)} host-stage specs at SF {MAIN_SF} == "
+          f"ORACLE rows, {launches} fused_program and {mat_launches} "
+          f"materialize launches for {N_HOST_PROGRAMS} relation programs",
+          flush=True)
+
+    per_prog = {}
+    fused_progs = []
+    mat_worst = 0
+    fused_worst = 0
+    for name, rel, cp, ins in host_programs(db):
+        f = fused_timing(cp, rel, flush)
+        fused_worst = max(fused_worst, f["diff"])
+        fused_progs.append(f)
+        planes, mask = materialize_inputs(rel, cp, ins)
+        diff, n = check_materialize(f"{name}/{rel.name} at SF {MAIN_SF}",
+                                    planes, mask)
+        mat_worst = max(mat_worst, diff)
+        w = mask.shape[0]
+        per_prog.setdefault(name, []).append({
+            "relation": rel.name, "fused": f, "count": n,
+            "mat_ms": cuda_ms(lambda: km.materialize(planes, mask), 5, flush,
+                              ahead=True),
+            "mat_call_ms": cuda_ms(lambda: km.materialize(planes, mask), 5,
+                                   flush),
+            "mat_plain_ms": cuda_ms(
+                lambda: km.materialize_torch(planes, mask), 2),
+            "mat_bytes": (sum(p.shape[0] for p in planes) + 1) * w * 4
+            + n * len(planes) * 4})
+    print(f"phase 4b ok: fused_program and materialize == plain on "
+          f"{N_HOST_PROGRAMS} programs at SF {MAIN_SF}", flush=True)
+
+    print("query   execute_ms  pim_ms   host_ms  fused_ms  mat_ms  "
+          "mat_call_ms  mat_plain_ms  mat_bound_ms  rows  "
+          "relation:materialized rows/mat_ms")
+    for spec in specs:
+        ps = per_prog[spec.name]
+        exec_ms = cuda_ms(lambda: db.execute(spec), 3)
+        res = db.execute(spec)
+        print(f"{spec.name:7s} {exec_ms:10.3f} {res.pim_s * 1e3:8.3f} "
+              f"{res.host_s * 1e3:9.3f} "
+              f"{sum(p['fused']['kernel_ms'] for p in ps):8.4f} "
+              f"{sum(p['mat_ms'] for p in ps):8.4f} "
+              f"{sum(p['mat_call_ms'] for p in ps):11.4f} "
+              f"{sum(p['mat_plain_ms'] for p in ps):12.3f} "
+              f"{sum(p['mat_bytes'] for p in ps) / HBM_BYTES_PER_S * 1e3:13.5f}"
+              f" {len(res.rows):5d}  "
+              + " ".join(f"{p['relation']}:{p['count']}/{p['mat_ms']:.4f}"
+                         for p in ps),
+              flush=True)
+    for name in ("Q3", "Q12"):
+        host_profile(db, Q.get_query(name))
+    print_fused_total(f"the {len(fused_progs)} programs of path b",
+                      fused_progs, peaks)
+
+    progs = [p for ps in per_prog.values() for p in ps]
+    mat = {"name": "materialize", "route": "cuda",
+           "source": CSRC + "materialize.cu",
+           "replaces": "src/repro/kernels/materialize.py:109",
+           "launches": mat_launches, "max_abs_err": mat_worst,
+           "ms": sum(p["mat_ms"] for p in progs),
+           "plain_ms": sum(p["mat_plain_ms"] for p in progs),
+           "bound_ms": sum(p["mat_bytes"] for p in progs)
+           / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": None}
+    fused = {"launches": launches, "max_abs_err": fused_worst,
+             "progs": fused_progs}
+    return fused, mat
+
+
+def phase_column_transform(db, flush):
+    """Path c: Q6's SF 1 lineitem mask through ``ops.unpack_mask`` and
+    ``ops.pack_mask``, checked against ORACLE's selection; then both
+    kernels against plain at that shape and their times. Returns the two
+    kernels entries."""
+    from repro_torch.core import program as prog
+    from repro_torch.db import database as D
+    from repro_torch.db import queries as Q
+    from repro_torch.kernels import bitpack as kb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import program as kp
+
+    spec = Q.get_query("Q6")
+    (_, rel, cp), = programs(db, [spec])
+    mask = kp.fused_program(prog.stack_sources(cp, rel), cp.tape)[0][0]
+    kb.bitpack_launches = 0
+    kb.bitunpack_launches = 0
+    bits = ops.unpack_mask(mask)
+    words = ops.pack_mask(bits)
+    torch.cuda.synchronize()
+    launches = {"bitpack": kb.bitpack_launches,
+                "bitunpack": kb.bitunpack_launches}
+    if launches != {"bitpack": 1, "bitunpack": 1}:
+        fail(f"column transform launches {launches}, expected one each")
+    want = db.execute(spec, engine=D.Engine.ORACLE).relations["lineitem"].mask
+    got = bits.reshape(-1)[:rel.n_records].cpu().numpy().astype(bool)
+    if not (np.array_equal(got, want) and torch.equal(words, mask)):
+        fail("column transform of Q6's mask disagrees with ORACLE")
+    diff = check_column_transform("Q6 lineitem mask", mask)
+    w = mask.shape[0]
+    print(f"phase 4c ok: Q6 lineitem mask ({w}, 32) through unpack_mask/"
+          f"pack_mask == ORACLE, kernels == plain", flush=True)
+    bound_ms = (w * 4 + w * 32 * 4) / HBM_BYTES_PER_S * 1e3
+    entries = []
+    for name, line, fn, plain, x in (
+            ("bitpack", 27, kb.bitpack, kb.bitpack_torch, bits),
+            ("bitunpack", 48, kb.bitunpack, kb.bitunpack_torch, mask)):
+        entries.append({
+            "name": name, "route": "cuda", "source": CSRC + "bitpack.cu",
+            "replaces": f"src/repro/kernels/bitpack.py:{line}",
+            "launches": launches[name], "max_abs_err": diff,
+            "ms": cuda_ms(lambda: fn(x), 5, flush, ahead=True),
+            "plain_ms": cuda_ms(lambda: plain(x), 3),
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
+        print(f"{name} at ({w}, 32): kernel {entries[-1]['ms']:.4f} ms, "
+              f"call {cuda_ms(lambda: fn(x), 5, flush):.4f} ms, plain "
+              f"{entries[-1]['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms",
+              flush=True)
+    return entries
 
 
 def main() -> None:
@@ -327,7 +639,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs an "
              "NVIDIA GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels import program as kp
+    from repro_torch.kernels import build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -338,15 +650,25 @@ def main() -> None:
           flush=True)
 
     t0 = time.perf_counter()
-    lib = kp.build_library()
-    print(f"phase 2 ok: built {lib.name} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    libs = build.build_library()
+    print(f"phase 2 ok: built {', '.join(sorted(libs))} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in libs.values():
+        print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
     worst = phase_kernel_vs_plain()
-    entry = phase_main_path(peak_ops_per_s())
-    entry["max_abs_err"] = max(worst, entry["max_abs_err"])
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    mat_worst, col_worst = phase_new_kernels_vs_plain()
+    peaks = peak_ops_per_s()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    db, path_a = phase_main_path(peaks, flush)
+    path_b, mat = phase_host_path(db, peaks, flush)
+    cols = phase_column_transform(db, flush)
+    fused = fused_entry([path_a, path_b], peaks)
+    fused["max_abs_err"] = max(worst, fused["max_abs_err"])
+    mat["max_abs_err"] = max(mat_worst, mat["max_abs_err"])
+    for c in cols:
+        c["max_abs_err"] = max(col_worst, c["max_abs_err"])
+    print(json.dumps({"kernels": [fused, mat, *cols]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

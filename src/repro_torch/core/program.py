@@ -9,12 +9,15 @@ into a plane-op tape (``kernels.program``): the :class:`BitwiseEvaluator`
 runs over symbolic plane handles following the reference Pallas kernel's
 schedule, and every bitwise op it performs becomes a tape entry.
 :func:`run_program` then launches the tape as ONE kernel over the stacked
-source planes and weights the popcounts exactly on the host.
+source planes and weights the popcounts exactly on the host. Each
+``Materialize`` instruction is one more launch, of the materialize kernel
+(``kernels.materialize``), over its attributes' planes and a mask the
+program kernel stored; its values stay on the device until
+``ProgramResult.materialized`` copies the selected prefix.
 
-Left out of this slice: cross-query linking (``link_programs``,
-``QuerySlot``; ROADMAP A7), sharding (A14), the ``Materialize`` output
-(A6) and the static verifier that the reference runs on every cache miss
-(A9; it checks the plan and changes no result).
+Left out so far: cross-query linking (``link_programs``, ``QuerySlot``;
+ROADMAP A7), sharding (A14) and the static verifier that the reference
+runs on every cache miss (A9; it checks the plan and changes no result).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import (Callable, Dict, FrozenSet, List, Mapping, Optional,
 import numpy as np
 import torch
 
+from repro_torch.kernels import materialize as kmat
 from repro_torch.kernels import program as kprog
 from . import bitslice, isa
 from . import engine as eng
@@ -611,8 +615,16 @@ class CompiledProgram:
     plan: ReducePlan
     arith: ArithPlan
     tape: "kprog.Tape"
-    # Source attribute -> bit-planes it contributes to the stacked rows.
+    # Source attribute -> its bit-planes (the reference's plane-read count).
     source_plane_counts: Mapping[str, int]
+    # Materialize dest -> the attributes it reads back, in order.
+    mat_attrs: Mapping[str, Tuple[str, ...]]
+    # Masks the program kernel stores: mask_outputs, then every
+    # Materialize mask not among them (except the valid plane).
+    kernel_masks: Tuple[str, ...]
+    # Source attributes the non-Materialize instructions read: the program
+    # kernel's input rows, in analysis.source_attrs order.
+    kernel_attrs: Tuple[str, ...]
 
     @property
     def n_dispatches(self) -> int:
@@ -674,6 +686,20 @@ class ProgramResult:
     def mask_packed(self, name: str) -> np.ndarray:
         return self._raw["masks"][name]
 
+    def materialized_count(self, name: str) -> int:
+        """Selected-record count of one Materialize output."""
+        return int(self._raw["mat_cnt"][name])
+
+    def materialized(self, name: str) -> Dict[str, np.ndarray]:
+        """Decoded column values of one Materialize output: ``{attr:
+        (count,) int32 array}`` in record order. The value buffer stays
+        on the device; one sync reads the count and only the
+        ``count``-column prefix is copied to the host."""
+        n = self.materialized_count(name)
+        dense = self._raw["mat_vals"][name][:, :n].cpu().numpy()
+        attrs = self._cp.mat_attrs[name]
+        return {a: dense[i] for i, a in enumerate(attrs)}
+
     def mask(self, name: str, n_records: Optional[int] = None) -> np.ndarray:
         n = self._n if n_records is None else n_records
         return bitslice.unpack_mask(self.mask_packed(name), n)
@@ -698,50 +724,78 @@ def compile_program(relation: eng.PimRelation,
     """Plan a whole relation program and lower it to one kernel tape.
 
     ``mask_outputs`` names the mask registers the host will read; every
-    reduce destination automatically becomes a scalar output.
+    reduce destination automatically becomes a scalar output, every
+    ``Materialize`` destination a device-resident value output.
     """
     instrs = tuple(program)
     mask_outputs = tuple(mask_outputs)
     scalar_kinds: Dict[str, tuple] = {}
+    mat_attrs: Dict[str, Tuple[str, ...]] = {}
+    mat_masks: List[str] = []
     for ins in instrs:
         if ins.kind == "ReduceSum":
             scalar_kinds[ins.dest] = ("sum",)
         elif ins.kind == "ReduceMinMax":
             scalar_kinds[ins.dest] = ("minmax", ins.is_max)
         elif ins.kind == "Materialize":
-            raise NotImplementedError(
-                "Materialize (selected records back to column values) is "
-                "the next slice of the port: ROADMAP A6")
-    analysis = analyze_program(instrs, relation, keep=mask_outputs)
+            mat_attrs[ins.dest] = tuple(ins.attrs)
+            if ins.mask not in mat_masks:
+                mat_masks.append(ins.mask)
+    # The materialize kernel reads its mask out of the program kernel, so
+    # the program kernel stores it and keeps it live to the end.
+    extra = tuple(m for m in mat_masks if m not in mask_outputs)
+    keep = mask_outputs + extra
+    kernel_masks = mask_outputs + tuple(m for m in extra if m != "__valid__")
+    analysis = analyze_program(instrs, relation, keep=keep)
     widths = {a: relation.width_of(a) for a in analysis.source_attrs}
     plan = plan_reduces(instrs, analysis, widths)
     arith = plan_arith(instrs, analysis, widths)
+    # Only what the filter/aggregate instructions read rides the program
+    # kernel; a Materialize-only attribute's one pass is the materialize
+    # kernel's.
+    kernel_reads = {r for ins in instrs if ins.kind != "Materialize"
+                    for r in instruction_reads(ins)}
+    kernel_attrs = tuple(a for a in analysis.source_attrs
+                         if a in kernel_reads)
 
     sig = program_signature(instrs, mask_outputs, widths)
     tape = _FN_CACHE.get(sig)
     if tape is None:
-        tape = _build_tape(instrs, mask_outputs, analysis, widths, plan,
+        tape = _build_tape(instrs, kernel_masks, kernel_attrs, widths, plan,
                            arith)
         _FN_CACHE.put(sig, tape)
     return CompiledProgram(instrs, mask_outputs, scalar_kinds, analysis,
-                           plan, arith, tape, dict(widths))
+                           plan, arith, tape, dict(widths), mat_attrs,
+                           kernel_masks, kernel_attrs)
 
 
 def stack_sources(cp: CompiledProgram,
                   relation: eng.PimRelation) -> torch.Tensor:
-    """The kernel's input, ``(rows, W)``: every source attribute's planes
-    in ``analysis.source_attrs`` order (the tape's row order), then the
+    """The program kernel's input, ``(rows, W)``: the planes of every
+    attribute in ``cp.kernel_attrs`` (the tape's row order), then the
     valid plane."""
-    return torch.cat([relation.planes[a] for a in cp.analysis.source_attrs]
+    return torch.cat([relation.planes[a] for a in cp.kernel_attrs]
                      + [relation.valid[None]])
 
 
 def run_program(cp: CompiledProgram, relation: eng.PimRelation
                 ) -> ProgramResult:
     """Execute a compiled program: ONE kernel launch for the whole
-    relation program, then exact host-side weighting of the popcounts."""
+    relation program, one materialize launch per ``Materialize``, then
+    exact host-side weighting of the popcounts. The materialized values
+    stay on the device (``ProgramResult.materialized`` copies out only
+    the ``count``-column prefix)."""
     masks, pc, mm = kprog.fused_program(stack_sources(cp, relation), cp.tape)
-    masks, pc, mm = eng.to_words(masks), pc.cpu().numpy(), mm.cpu()
+    mat_vals: Dict[str, torch.Tensor] = {}
+    mat_cnt: Dict[str, torch.Tensor] = {}
+    for ins in cp.instrs:
+        if ins.kind == "Materialize":
+            mask = (relation.valid if ins.mask == "__valid__"
+                    else masks[cp.kernel_masks.index(ins.mask)])
+            mat_vals[ins.dest], mat_cnt[ins.dest] = kmat.materialize(
+                [relation.planes[a] for a in ins.attrs], mask)
+    masks = eng.to_words(masks[:len(cp.mask_outputs)])
+    pc, mm = pc.cpu().numpy(), mm.cpu()
     job_pc = [pc[job.col_start:job.col_start + job.n_cols]
               .reshape(job.width, len(job.masks)).T
               for job in cp.plan.sum_jobs]
@@ -754,26 +808,28 @@ def run_program(cp: CompiledProgram, relation: eng.PimRelation
         mm_bits[mj.dest] = bits.numpy()
         mm_found[mj.dest] = bool(found)
     raw = {"masks": {m: masks[k] for k, m in enumerate(cp.mask_outputs)},
-           "job_pc": job_pc, "mm_bits": mm_bits, "mm_found": mm_found}
+           "job_pc": job_pc, "mm_bits": mm_bits, "mm_found": mm_found,
+           "mat_vals": mat_vals, "mat_cnt": mat_cnt}
     return ProgramResult(cp, raw, relation.n_records)
 
 
 # --------------------------------------------------------------------------
 # Lowering: the Pallas kernel's schedule, recorded as a plane-op tape
 # --------------------------------------------------------------------------
-def _build_tape(instrs, mask_outputs, analysis: ProgramAnalysis,
-                widths: Mapping[str, int], plan: ReducePlan,
-                arith: ArithPlan) -> "kprog.Tape":
+def _build_tape(instrs, kernel_masks: Tuple[str, ...],
+                kernel_attrs: Tuple[str, ...], widths: Mapping[str, int],
+                plan: ReducePlan, arith: ArithPlan) -> "kprog.Tape":
     """Record the tape of one program, following the reference Pallas
     kernel's schedule exactly: ReduceSum jobs at their ``exec_at``, CSA
     batches at their anchor, MIN/MAX at its own position, and ``frees``
-    after each instruction. Rows: source attributes in
-    ``analysis.source_attrs`` order, then the valid plane."""
+    after each instruction; ``Materialize`` is the materialize kernel's
+    and records nothing. Rows: ``kernel_attrs`` in order, then the valid
+    plane; the STOREs write ``kernel_masks`` in order."""
     frees = frees_by_instr(len(instrs), plan.last_use,
-                           frozenset(mask_outputs))
+                           frozenset(kernel_masks))
     attr_rows: Dict[str, Tuple[int, int]] = {}
     r0 = 0
-    for a in analysis.source_attrs:
+    for a in kernel_attrs:
         attr_rows[a] = (r0, r0 + widths[a])
         r0 += widths[a]
     rec = kprog.TapeRecorder()
@@ -794,6 +850,8 @@ def _build_tape(instrs, mask_outputs, analysis: ProgramAnalysis,
             _reduce_minmax_bits(ev.planes(mj.attr)[:mj.width],
                                 ev.masks[mj.mask], mj.is_max, rec,
                                 mj.col_start)
+        elif ins.kind == "Materialize":
+            pass                       # the materialize kernel's launch
         elif i in batch_at:
             ev.execute_arith_batch([instrs[j] for j in batch_at[i]])
         elif i in batched:
@@ -809,7 +867,7 @@ def _build_tape(instrs, mask_outputs, analysis: ProgramAnalysis,
                     rec.popcount(ev.masks[m], p[b], job.col_start + b * g + k)
         for r in frees[i]:
             ev.free(r)
-    for k, name in enumerate(mask_outputs):
+    for k, name in enumerate(kernel_masks):
         rec.store(ev.masks[name], k)
-    return rec.finish(n_rows=r0 + 1, n_masks=len(mask_outputs),
+    return rec.finish(n_rows=r0 + 1, n_masks=len(kernel_masks),
                       n_pc=plan.n_pc_cols, n_mm=plan.n_mm_cols)

@@ -1,19 +1,21 @@
 """PimDatabase: the device-resident database copy + query execution.
 
-The counterpart of ``repro.db.database`` for the filter/aggregate slice:
+The counterpart of ``repro.db.database`` for single queries:
 ``PimDatabase(tables, device="cuda").execute(spec, engine=...)`` runs one
-``QuerySpec`` without a host stage (``spec.filter_only()``):
+``QuerySpec``:
 
   * ``Engine.FUSED`` — one kernel launch per relation program
-    (``core.program``; the hand-written CUDA kernel on a CUDA device, its
-    plain PyTorch version on the CPU), exact host weighting of the
-    popcounts;
+    (``core.program``; the hand-written CUDA kernels on a CUDA device,
+    their plain PyTorch versions on the CPU), exact host weighting of the
+    popcounts. A spec with a host stage (``spec.host``) runs end to end:
+    each relation's filter and ``Materialize`` on the device, only the
+    selected records copied back, then the numpy host stage
+    (``db.exec``: joins, residual predicates, group-by, order/limit);
   * ``Engine.ORACLE`` — the numpy column-store scan (paper §5.5), the
-    check FUSED is held to.
+    check FUSED is held to, with the same host stage over its own scans.
 
-Not in this slice: specs with a host stage (materialize + joins, ROADMAP
-A6), linked multi-spec batches (A7), the eager engine (A8), DML, faults
-and serving (A10–A12).
+Not ported yet: linked multi-spec batches (ROADMAP A7), the eager engine
+(A8), DML, faults and serving (A10–A12).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from repro_torch.core import engine as eng
 from repro_torch.core import isa
 from repro_torch.core import program as prog
+from . import exec as E
 from . import queries as Q
 from . import schema as S
 from .compiler import And, Compiler, predicate_attrs
@@ -68,20 +71,37 @@ class Engine(enum.Enum):
         return v if isinstance(v, Engine) else cls(str(v).lower())
 
 
+# Result columns that are derived money at cents x percent scale.
+_REVENUE_COLS = {"revenue", "promo_revenue"}
+
+
 @dataclasses.dataclass
 class QueryResult:
-    """Result of :meth:`PimDatabase.execute`: ``aggregates`` (group ->
+    """Result of :meth:`PimDatabase.execute`; every field is present for
+    every (engine, spec).
+
+    Mask/aggregate scope (``spec.host is None``): ``aggregates`` (group ->
     {agg: value}; an empty group's avg/min/max is ``None``) and the
-    per-relation ``relations`` runs. ``batch_stats`` holds the FUSED
-    run's launch-level accounting."""
+    per-relation ``relations`` runs; ``columns``/``rows`` are empty.
+    End-to-end scope: ``columns``/``rows`` hold the host stage's result
+    table — ``rows`` the exact PIM-encoded integers (``None`` for an empty
+    min/max/avg) that the ORACLE comparison uses, ``decoded_rows()`` the
+    schema's presentation — and ``materialized_rows`` the records each
+    relation handed the host. ``batch_stats`` holds the FUSED run's
+    launch-level accounting."""
     spec: Q.QuerySpec
     engine: Engine = Engine.FUSED
     aggregates: Dict[str, Dict[str, object]] = dataclasses.field(
         default_factory=dict)
     relations: Dict[str, RelationRun] = dataclasses.field(
         default_factory=dict)
+    columns: Tuple[str, ...] = ()
+    rows: List[tuple] = dataclasses.field(default_factory=list)
     pim_s: float = 0.0
+    host_s: float = 0.0
     wall_s: float = 0.0
+    materialized_rows: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
     batch_stats: Optional[Dict[str, object]] = None
 
     @property
@@ -91,6 +111,50 @@ class QueryResult:
     @property
     def kind(self) -> str:
         return self.spec.kind
+
+    @classmethod
+    def from_table(cls, spec: Q.QuerySpec, table: E.HostTable,
+                   pim_s: float, host_s: float, mat_rows: Dict[str, int],
+                   engine: Engine = Engine.FUSED,
+                   batch_stats: Optional[Dict[str, object]] = None
+                   ) -> "QueryResult":
+        cols, rows = _table_rows(table)
+        return cls(spec=spec, engine=engine, columns=cols, rows=rows,
+                   pim_s=pim_s, host_s=host_s, wall_s=pim_s + host_s,
+                   materialized_rows=dict(mat_rows),
+                   batch_stats=batch_stats)
+
+    def decoded_rows(self) -> List[tuple]:
+        out = []
+        for row in self.rows:
+            dec = []
+            for c, v in zip(self.columns, row):
+                if v is None:
+                    dec.append(None)
+                elif c in _REVENUE_COLS:
+                    dec.append(S.decode_revenue(v))
+                else:
+                    dec.append(S.decode_value(c, v))
+            out.append(tuple(dec))
+        return out
+
+    @property
+    def total_materialized(self) -> int:
+        return sum(self.materialized_rows.values())
+
+
+def _table_rows(table: E.HostTable) -> Tuple[Tuple[str, ...], List[tuple]]:
+    def cell(v):
+        if v is None:
+            return None
+        if isinstance(v, (float, np.floating)):   # host-stage avg
+            return float(v)
+        return int(v)
+
+    cols = tuple(table.columns)
+    rows = [tuple(cell(table.columns[c][i]) for c in cols)
+            for i in range(table.n_rows)]
+    return cols, rows
 
 
 class PimDatabase:
@@ -183,26 +247,18 @@ class PimDatabase:
     # -- execution entry point ------------------------------------------------
     def execute(self, spec: Q.QuerySpec, *,
                 engine: Union[Engine, str] = Engine.FUSED) -> QueryResult:
-        """Run one :class:`~repro_torch.db.queries.QuerySpec` on ``engine``.
-
-        Only the mask/aggregate scope is ported: a spec that carries a
-        host stage raises ``NotImplementedError`` (use
-        ``spec.filter_only()``), as does a list of specs."""
+        """Run one :class:`~repro_torch.db.queries.QuerySpec` on ``engine``:
+        end to end when it carries a host stage, else its masks and
+        aggregates. A list of specs raises ``NotImplementedError``."""
         engine = Engine.coerce(engine)
         if not isinstance(spec, Q.QuerySpec):
             raise NotImplementedError(
                 "batches of specs, linked into one launch per relation, "
                 "are not ported yet: ROADMAP A7")
-        if spec.host is not None:
-            raise NotImplementedError(
-                f"{spec.name} carries a host stage (materialize + joins), "
-                "which is not ported yet: ROADMAP A6; run "
-                "spec.filter_only()")
-        return self._execute_one(spec, engine)
-
-    def _execute_one(self, spec: Q.QuerySpec, engine: Engine) -> QueryResult:
         if engine is Engine.ORACLE:
             return self._execute_baseline(spec)
+        if spec.host is not None:
+            return self._execute_host(spec)
         return self._execute_pim(spec)
 
     def _execute_pim(self, spec: Q.QuerySpec) -> QueryResult:
@@ -238,9 +294,53 @@ class PimDatabase:
                            relations=rel_runs, pim_s=pim_s, wall_s=wall,
                            batch_stats=stats)
 
+    # -- end-to-end execution (PIM stage + host stage) -----------------------
+    def _execute_host(self, spec: Q.QuerySpec) -> QueryResult:
+        """FUSED, end to end: each relation's filter (or scan-all) and
+        ``Materialize`` run as one compiled program — the program kernel,
+        then the materialize kernel — and hand the host only the selected
+        records; the host stage (``db.exec``) joins, applies residual
+        predicates, aggregates and orders them into TPC-H result rows."""
+        pim_stage, host = E.split_query(spec)
+        t0 = time.perf_counter()
+        materialized: Dict[str, E.HostTable] = {}
+        mat_rows: Dict[str, int] = {}
+        rel_stats: Dict[str, Dict[str, object]] = {}
+        for rel_name, pred, cols in pim_stage:
+            rel = self.relations[rel_name]
+            c = Compiler(rel)
+            mask_reg = (c.compile_filter(pred, with_transform=False)
+                        if pred is not None else c.compile_scan_all())
+            mat_reg = c.compile_materialize(mask_reg, cols)
+            cp = prog.compile_program(rel, c.program, mask_outputs=())
+            t1 = time.perf_counter()
+            vals = prog.run_program(cp, rel).materialized(mat_reg)
+            rel_stats[rel_name] = _single_relation_stats(
+                c, cp, time.perf_counter() - t1)
+            materialized[rel_name] = E.HostTable(
+                {a: np.asarray(v, np.int64) for a, v in vals.items()})
+            mat_rows[rel_name] = materialized[rel_name].n_rows
+        pim_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        table = E.run_host_stage(host, E.ExecContext(materialized,
+                                                     self.tables))
+        host_s = time.perf_counter() - t0
+        stats = _empty_batch_stats()
+        stats.update(n_queries=1, n_dispatches=len(rel_stats),
+                     pim_s=sum(s["pim_s"] for s in rel_stats.values()),
+                     host_s=host_s, wall_s=pim_s + host_s,
+                     relations=rel_stats)
+        self.last_batch_stats = stats
+        return QueryResult.from_table(spec, table, pim_s, host_s, mat_rows,
+                                      batch_stats=stats)
+
     # -- baseline (numpy scan oracle) ----------------------------------------
     def _execute_baseline(self, spec: Q.QuerySpec) -> QueryResult:
-        """The paper's §5.5 in-memory column-store scan."""
+        """The paper's §5.5 in-memory column-store scan. For a spec with a
+        host stage the filter masks come from the same numpy scans
+        (``exec.baseline_context``) and the host stage runs over them —
+        full result rows, no device involved."""
         t_all = time.perf_counter()
         rel_runs: Dict[str, RelationRun] = {}
         aggs: Dict[str, Dict[str, object]] = {}
@@ -258,9 +358,22 @@ class PimDatabase:
                 n_records=n, mask=mask, trace=[],
                 selectivity=float(mask.mean()) if mask.size else 0.0,
                 filter_attr_bits=[], filter_attr_sels=[], agg_attr_bits=[])
+        columns: Tuple[str, ...] = ()
+        rows: List[tuple] = []
+        mat_rows: Dict[str, int] = {}
+        host_s = 0.0
+        if spec.host is not None:
+            t0 = time.perf_counter()
+            ctx = E.baseline_context(self.tables, spec)
+            table = E.run_host_stage(spec.host, ctx)
+            host_s = time.perf_counter() - t0
+            columns, rows = _table_rows(table)
+            mat_rows = {r: t.n_rows for r, t in ctx.materialized.items()}
         return QueryResult(spec=spec, engine=Engine.ORACLE,
                            aggregates=aggs, relations=rel_runs,
-                           wall_s=time.perf_counter() - t_all)
+                           columns=columns, rows=rows, host_s=host_s,
+                           wall_s=time.perf_counter() - t_all,
+                           materialized_rows=mat_rows)
 
 
 def _empty_batch_stats() -> Dict[str, object]:

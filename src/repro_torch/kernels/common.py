@@ -1,6 +1,8 @@
 """Helpers shared by the port's kernels and their plain PyTorch versions."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 # Shared memory one block may use on Hopper (232,448 bytes of the SM's
@@ -36,3 +38,15 @@ def pick_block(n_slots: int, n_acc: int) -> int:
     raise ValueError(
         f"{n_slots} slots x {MIN_BLOCK} threads + {n_acc} accumulators "
         f"exceed {SMEM_BYTES} bytes of shared memory")
+
+
+def check_int32(t: torch.Tensor, what: str, shape: Tuple[int, ...],
+                device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous int32 tensor of ``shape`` on
+    ``device``: what a kernel launcher takes."""
+    if t.device != device or t.dtype != torch.int32:
+        raise ValueError(f"{what} must be int32 on {device}, got {t.dtype} "
+                         f"on {t.device}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous of shape "
+                         f"{tuple(shape)}, got {tuple(t.shape)}")

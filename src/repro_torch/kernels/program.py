@@ -29,16 +29,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import build
 from .common import pick_block, popcount
 
 # Opcodes — keep in step with csrc/fused_program.cu.
@@ -428,60 +424,20 @@ def fused_program_torch(stacked: torch.Tensor, tape: Tape
 # --------------------------------------------------------------------------
 # The CUDA kernel: build, bind, launch
 # --------------------------------------------------------------------------
-_CSRC = Path(__file__).resolve().parent / "csrc" / "fused_program.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_lib: Optional[ctypes.CDLL] = None
-
 # Kernel launches made by ``fused_program``; a caller that wants to show
 # that a run went through the kernel resets and reads it.
 launches = 0
 
 
-def _nvcc() -> str:
-    """``nvcc`` from ``$CUDA_HOME/bin`` when ``CUDA_HOME`` is set, else from
-    ``PATH``."""
-    home = os.environ.get("CUDA_HOME")
-    nvcc = shutil.which("nvcc", path=os.path.join(home, "bin") if home
-                        else None)
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME/bin or PATH): the "
-                           "fused_program CUDA kernel cannot be built")
-    return nvcc
-
-
-def build_library() -> Path:
-    """Compile ``csrc/fused_program.cu`` into a shared library, once per
-    source hash. The compiler's resource report is kept beside it
-    (``.log``). Raises if ``nvcc`` is missing or the build fails."""
-    src = _CSRC.read_bytes()
-    out = _BUILD_DIR / f"fused_program_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    nvcc = _nvcc()
-    _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fused_program_launch.argtypes = [p, ll, p, i, i, p, p, i, p, i, i,
+                                         i, p]
+    lib.fused_program_launch.restype = i
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fused_program_launch.argtypes = [p, ll, p, i, i, p, p, i, p, i,
-                                             i, i, p]
-        lib.fused_program_launch.restype = i
-        _lib = lib
-    return _lib
+    return build.library("fused_program", _bind)
 
 
 def fused_program(stacked: torch.Tensor, tape: Tape

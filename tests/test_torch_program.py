@@ -346,10 +346,11 @@ def test_counters_match_reference():
 def test_wrapper_raises_without_kernel(tdb_cpu, monkeypatch, tmp_path,
                                        broken):
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import build as kbuild
     rel, cp = _compiled(tdb_cpu, tq.get_query("Q6"))[0]
-    monkeypatch.setattr(kp, "_lib", None)
+    monkeypatch.setattr(kbuild, "_libs", {})
     if broken == "no_nvcc":
-        monkeypatch.setattr(kp, "_BUILD_DIR", tmp_path)
+        monkeypatch.setattr(kbuild, "_BUILD_DIR", tmp_path)
         monkeypatch.setenv("PATH", str(tmp_path))
         monkeypatch.delenv("CUDA_HOME", raising=False)
         match = "nvcc not found"
