@@ -17,7 +17,12 @@ Phases (any failure exits non-zero before the last line):
    the count prefix) on the 16 ``Materialize`` programs of the six
    host-stage specs and on random plane stacks of widths 1, 7, 31 and 32
    at mask densities 0, 0.001, 0.5 and 1; ``bitpack``/``bitunpack``
-   against their plain versions on random 0/1 data and all-ones words.
+   against their plain versions on random 0/1 data and all-ones words;
+   ``eq_imm``/``cmp_imm``/``range_mask`` against their plain versions on
+   every immediate predicate operand the eager engine hands them over
+   the 34 programs and on random stacks of widths 1, 7, 17, 31, 32, 33, 64 and
+   the widest operand (immediates 0, 2^n - 1, bit 31 set, bits above the
+   width), ``filter_sum`` at (nf, na) (9, 0), (17, 12), (24, 20), (32, 64).
    The word counts there are not a multiple of any kernel's block.
 4. Main paths, TPC-H SF 1, each driven with the launch counts set to 0
    just before it and read just after:
@@ -31,13 +36,31 @@ Phases (any failure exits non-zero before the last line):
       program (16);
    c. the column transform of Q6's lineitem mask through
       ``kernels.ops.unpack_mask``/``pack_mask``: the unpacked bits equal
-      the ORACLE's selection and packing them gives the mask back.
+      the ORACLE's selection and packing them gives the mask back;
+   d. the eager engine: the specs of a. and the six host-stage specs on
+      ``engine="eager"``, every mask, aggregate and result row equal to
+      ORACLE's (and FUSED's); ``eq_imm``/``cmp_imm`` launch once per
+      immediate predicate with a representable immediate in the traces,
+      every other kernel 0 times; then, stepping the engine through the
+      same programs, ``eq_imm``/``cmp_imm``/``range_mask`` against their
+      plain versions on every operand and immediate the path handed
+      them; a table of eager execute_ms;
+   e. the kernel API on lineitem: ``ops.predicate_range`` over
+      ``l_shipdate`` with Q6's bounds and ``ops.fused_filter_sum`` with
+      ``l_extendedprice`` (exact count and sum), ``predicate_eq_imm``/
+      ``predicate_cmp_imm`` on ``l_quantity``, all against numpy over the
+      encoded columns; each launches once.
    Then every kernel against its plain version bit for bit at those SF 1
    shapes, and the times: per query the warm median of ``execute``; per
    kernel its device time (CUDA events, cold L2, the launch queued behind
    a spin kernel), one call's time with the host's launch time in it,
    the plain version's time, the bound and what sets it.
-5. One ``{"kernels": [...]}`` JSON line, then ``{"ok": true, ...}`` last.
+5. The paper-scale cost report (``db.report``, SF 1 x 1000) of the 19
+   specs, equal on FUSED and EAGER (the same traces, and masks path d
+   found equal): the paper's analytical model, not a measurement of the
+   card.
+6. One ``{"kernels": [...]}`` JSON line (eight kernels), then
+   ``{"ok": true, ...}`` last.
 
 Seeds fix the data; nothing is read from outside the checkout.
 """
@@ -317,7 +340,8 @@ def phase_main_path(peaks, flush):
 
     progs = [p for ps in per_prog.values() for p in ps]
     print_fused_total(f"the {len(progs)} programs of path a", progs, peaks)
-    return db, {"launches": launches, "max_abs_err": worst, "progs": progs}
+    return db, {"launches": launches, "max_abs_err": worst, "progs": progs,
+                "results": {s.name: r for s, r in zip(run, results)}}
 
 
 def fused_totals(progs, peaks) -> dict:
@@ -634,6 +658,407 @@ def phase_column_transform(db, flush):
     return entries
 
 
+IMM_KINDS = ("EqualImm", "NotEqualImm", "LessThanImm", "GreaterThanImm")
+FILTER_WIDTHS = (1, 7, 17, 31, 32, 33, 64)
+FILTER_SUM_SHAPES = ((9, 0), (17, 12), (24, 20), (32, 64))
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import bitpack as kb
+    from repro_torch.kernels import bitwise_filter as kbf
+    from repro_torch.kernels import filter_aggregate as kfa
+    from repro_torch.kernels import materialize as km
+    from repro_torch.kernels import program as kp
+    kp.launches = km.launches = kfa.launches = 0
+    kb.bitpack_launches = kb.bitunpack_launches = 0
+    kbf.eq_imm_launches = kbf.cmp_imm_launches = 0
+    kbf.range_mask_launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from repro_torch.kernels import bitpack as kb
+    from repro_torch.kernels import bitwise_filter as kbf
+    from repro_torch.kernels import filter_aggregate as kfa
+    from repro_torch.kernels import materialize as km
+    from repro_torch.kernels import program as kp
+    return {"fused_program": kp.launches, "materialize": km.launches,
+            "eq_imm": kbf.eq_imm_launches, "cmp_imm": kbf.cmp_imm_launches,
+            "range_mask": kbf.range_mask_launches, "filter_sum": kfa.launches,
+            "bitpack": kb.bitpack_launches,
+            "bitunpack": kb.bitunpack_launches}
+
+
+def imm_predicates(instrs) -> tuple[int, int]:
+    """(eq_imm, cmp_imm) launches an eager run of ``instrs`` makes: one per
+    immediate predicate whose immediate its operand's width (``n_bits``,
+    the compiler's operand width) can represent."""
+    eq = cmp = 0
+    for i in instrs:
+        if i.kind in IMM_KINDS and i.imm < 1 << i.n_bits:
+            if i.kind in ("EqualImm", "NotEqualImm"):
+                eq += 1
+            else:
+                cmp += 1
+    return eq, cmp
+
+
+def check_filter_kernels(what, planes, imms) -> int:
+    """eq_imm, cmp_imm and range_mask vs their plain versions on the card,
+    bit for bit, for each immediate (range: ``[imm >> 3, imm)`` and
+    ``[0, imm)``). Returns the max abs diff (0, or the run fails)."""
+    from repro_torch.kernels import bitwise_filter as kbf
+    worst = 0
+    for imm in imms:
+        got = [kbf.eq_imm(planes, imm), *kbf.cmp_imm(planes, imm),
+               kbf.range_mask(planes, imm >> 3, imm),
+               kbf.range_mask(planes, 0, imm)]
+        want = [kbf.eq_imm_torch(planes, imm),
+                *kbf.cmp_imm_torch(planes, imm),
+                kbf.range_mask_torch(planes, imm >> 3, imm),
+                kbf.range_mask_torch(planes, 0, imm)]
+        torch.cuda.synchronize()
+        diff = max_abs_diff(got, want)
+        if diff:
+            fail(f"eq_imm/cmp_imm/range_mask != plain on {what}, imm "
+                 f"{imm:#x}: max abs diff {diff}")
+        worst = max(worst, diff)
+    return worst
+
+
+def check_filter_sum(what, fplanes, aplanes, valid, lo, hi) -> int:
+    """filter_sum vs filter_sum_torch on the card: count and per-bit
+    popcounts exactly. Returns the max abs diff."""
+    from repro_torch.kernels import filter_aggregate as kfa
+    got = kfa.filter_sum(fplanes, aplanes, valid, lo, hi)
+    want = kfa.filter_sum_torch(fplanes, aplanes, valid, lo, hi)
+    torch.cuda.synchronize()
+    diff = max_abs_diff([g.reshape(-1) for g in got],
+                        [w.reshape(-1) for w in want])
+    if diff:
+        fail(f"filter_sum != plain on {what}: max abs diff {diff}")
+    return diff
+
+
+def eager_programs(db, specs, hosts):
+    """(label, relation, instructions) of every relation program an eager
+    run of ``specs`` (mask/aggregate scope) and ``hosts`` (host-stage
+    specs) steps through, compiled as ``PimDatabase.execute`` compiles
+    them."""
+    from repro_torch.db import exec as E
+    from repro_torch.db.compiler import Compiler
+    out = []
+    for spec in specs:
+        for rel_name, pred in spec.filters.items():
+            rel = db.relations[rel_name]
+            c, _, _ = db._compile_relation(rel, spec, pred)
+            out.append((f"{spec.name}/{rel_name}", rel, list(c.program)))
+    for spec in hosts:
+        for rel_name, pred, cols in E.split_query(spec)[0]:
+            rel = db.relations[rel_name]
+            c = Compiler(rel)
+            m = (c.compile_filter(pred, with_transform=False)
+                 if pred is not None else c.compile_scan_all())
+            c.compile_materialize(m, cols)
+            out.append((f"{spec.name}/{rel_name}", rel, list(c.program)))
+    return out
+
+
+def check_eager_operands(progs) -> tuple[int, int, int]:
+    """Step an eager ``Engine`` through each program as ``execute`` runs
+    it and, before each immediate predicate whose immediate its operand
+    can represent, hold eq_imm/cmp_imm/range_mask against their plain
+    versions on that operand and immediate: the very inputs the eager
+    path hands the kernels (relation planes, derived attributes, masks).
+    A program stops after its last immediate predicate. Returns (max abs
+    diff, operands checked, widest operand in bits)."""
+    from repro_torch.core import engine as eng
+    worst = n_ops = widest = 0
+    for label, rel, instrs in progs:
+        last = max((k for k, i in enumerate(instrs) if i.kind in IMM_KINDS),
+                   default=-1)
+        e = eng.Engine(rel)
+        for i in instrs[:last + 1]:
+            if i.kind in IMM_KINDS:
+                p = e._planes(i.attr)
+                if i.imm < 1 << p.shape[0]:
+                    widest = max(widest, p.shape[0])
+                    worst = max(worst, check_filter_kernels(
+                        f"{label} {i.attr} {tuple(p.shape)}", p, [i.imm]))
+                    n_ops += 1
+            e.execute(i)
+    return worst, n_ops, widest
+
+
+def phase_filter_kernels_vs_plain() -> dict:
+    """eq_imm, cmp_imm, range_mask and filter_sum vs plain: on every
+    immediate predicate operand of the eager engine's 34 programs at SF
+    0.01, and on random stacks of widths 1-64 and the widest operand the
+    engine hands them, at a word count that is a multiple of no block.
+    Returns the worst diffs {"filter": ..., "filter_sum": ...}."""
+    from repro_torch.db import database as D
+    from repro_torch.db import queries as Q
+    from repro_torch.db import tpch
+
+    db = D.PimDatabase(tpch.generate(sf=SMOKE_SF, seed=SEED))
+    worst, n_ops, widest = check_eager_operands(
+        eager_programs(db, [s.filter_only() for s in Q.all_queries()], []))
+    g = torch.Generator().manual_seed(SEED)
+    n_words = 100_003                       # a multiple of no block (256)
+    for width in sorted(set(FILTER_WIDTHS) | {widest}):
+        planes = torch.randint(-(1 << 31), 1 << 31, (width, n_words),
+                               dtype=torch.int32, generator=g)
+        planes[:, 0] = -1                   # all-ones words
+        planes[:, 1] |= -(1 << 31)          # bit 31 set
+        planes[:, 2] = 0
+        top = (1 << width) - 1
+        imms = [0, top, (1 << 31) | 5, top ^ 0x55,
+                (1 << width) | (1 << (width + 9)) | 6]
+        worst = max(worst, check_filter_kernels(
+            f"random width {width}", planes.cuda(), imms))
+    sum_worst = 0
+    for nf, na in FILTER_SUM_SHAPES:
+        fp = torch.randint(-(1 << 31), 1 << 31, (nf, n_words),
+                           dtype=torch.int32, generator=g)
+        ap = torch.randint(-(1 << 31), 1 << 31, (na, n_words),
+                           dtype=torch.int32, generator=g)
+        valid = torch.randint(-(1 << 31), 1 << 31, (n_words,),
+                              dtype=torch.int32, generator=g)
+        for lo, hi in ((3, (1 << nf) - 9), (0, 1 << 31),
+                       ((1 << nf) | 7, (1 << nf) - 1)):
+            sum_worst = max(sum_worst, check_filter_sum(
+                f"random ({nf}, {na}) [{lo:#x}, {hi:#x})", fp.cuda(),
+                ap.cuda(), valid.cuda(), lo, hi))
+    print(f"phase 3 ok: eq_imm/cmp_imm/range_mask == plain on {n_ops} "
+          f"eager operands at SF {SMOKE_SF} (widest {widest} bits) and "
+          f"widths {sorted(set(FILTER_WIDTHS) | {widest})}; filter_sum == "
+          f"plain at (nf, na) {list(FILTER_SUM_SHAPES)}", flush=True)
+    return {"filter": worst, "filter_sum": sum_worst}
+
+
+def phase_eager_path(db, fused_results):
+    """Path d: the 19 ``filter_only()`` specs, the two MIN/MAX specs and
+    the six host-stage specs on ``engine="eager"`` at SF 1, checked against
+    ORACLE (and FUSED's masks and aggregates); eq_imm/cmp_imm launch once
+    per representable immediate predicate of the traces, and nothing else
+    launches. Then eq_imm/cmp_imm/range_mask against their plain versions
+    on every operand and immediate the path handed them. Returns (launch
+    counts, worst diff, {name: eager result})."""
+    from repro_torch.db import database as D
+    from repro_torch.db import queries as Q
+
+    specs = [s.filter_only() for s in Q.all_queries()] + minmax_specs()
+    hosts = [Q.get_query(n) for n in HOST_SPECS]
+    reset_launches()
+    results = [db.execute(s, engine="eager") for s in specs]
+    host_results = [db.execute(s, engine=D.Engine.EAGER) for s in hosts]
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    progs = eager_programs(db, specs, hosts)
+    want_eq = want_cmp = 0
+    for _, _, instrs in progs:
+        eq, cmp = imm_predicates(instrs)
+        want_eq, want_cmp = want_eq + eq, want_cmp + cmp
+    for spec, eager in zip(specs, results):
+        oracle = db.execute(spec, engine=D.Engine.ORACLE)
+        fused = fused_results[spec.name]
+        if eager.engine is not D.Engine.EAGER:
+            fail(f"{spec.name}: engine {eager.engine}")
+        for rel, run in eager.relations.items():
+            if not (np.array_equal(run.mask, oracle.relations[rel].mask)
+                    and np.array_equal(run.mask, fused.relations[rel].mask)):
+                fail(f"{spec.name}/{rel}: EAGER mask != ORACLE/FUSED")
+        if not eager.aggregates == oracle.aggregates == fused.aggregates:
+            fail(f"{spec.name}: EAGER aggregates {eager.aggregates} != "
+                 f"ORACLE {oracle.aggregates} / FUSED {fused.aggregates}")
+    for spec, eager in zip(hosts, host_results):
+        oracle = db.execute(spec, engine=D.Engine.ORACLE)
+        if not eager.rows or eager.rows != oracle.rows \
+                or eager.materialized_rows != oracle.materialized_rows:
+            fail(f"{spec.name}: EAGER rows/materialized != ORACLE")
+    want = dict.fromkeys(read_launches(), 0)
+    want.update(eq_imm=want_eq, cmp_imm=want_cmp)
+    if launches != want:
+        fail(f"eager path launches {launches}, expected {want}")
+    print(f"phase 4d ok: {len(specs)} specs and {len(hosts)} host-stage "
+          f"specs at SF {MAIN_SF} on EAGER == ORACLE (and FUSED); launches "
+          f"{ {k: v for k, v in launches.items() if v} }, fused_program and "
+          f"materialize 0", flush=True)
+    worst, n_ops, widest = check_eager_operands(progs)
+    if n_ops != want_eq + want_cmp:
+        fail(f"checked {n_ops} eager operands, the path launched "
+             f"{want_eq + want_cmp} eq_imm/cmp_imm kernels")
+    print(f"phase 4d ok: eq_imm/cmp_imm/range_mask == plain on all {n_ops} "
+          f"operands the eager path handed them at SF {MAIN_SF} "
+          f"({len(progs)} programs, up to {widest} bits wide)", flush=True)
+    print("query     eager_ms   (EAGER execute, warm median of 3)")
+    for spec in specs + hosts:
+        ms = cuda_ms(lambda: db.execute(spec, engine="eager"), 3)
+        print(f"{spec.name:9s} {ms:10.3f}", flush=True)
+    return launches, worst, {s.name: r for s, r in zip(specs, results)}
+
+
+def q6_shipdate_range(db) -> tuple[int, int]:
+    """``[lo, hi)`` of Q6's ``l_shipdate`` comparisons, from the immediates
+    of its compiled lineitem program."""
+    from repro_torch.db import queries as Q
+    spec = Q.get_query("Q6").filter_only()
+    c, _, _ = db._compile_relation(db.relations["lineitem"], spec,
+                                   spec.filters["lineitem"])
+    lo = hi = None
+    for i in c.program:
+        if i.kind in IMM_KINDS and i.attr == "l_shipdate":
+            if i.kind == "GreaterThanImm":
+                lo = i.imm if i.or_equal else i.imm + 1
+            elif i.kind == "LessThanImm":
+                hi = i.imm + 1 if i.or_equal else i.imm
+    if lo is None or hi is None:
+        fail(f"Q6 has no l_shipdate range: {list(c.program)}")
+    return lo, hi
+
+
+def filter_timing(name, fn, plain, nbytes, logic, popc, peaks, flush):
+    """Card time (queued behind a spin, cold L2), one call's time, the
+    plain version's time and the bound of one filter kernel call."""
+    bound, by = bound_s(nbytes, logic, popc, peaks)
+    t = {"ms": cuda_ms(fn, 5, flush, ahead=True),
+         "call_ms": cuda_ms(fn, 5, flush),
+         "plain_ms": cuda_ms(plain, 3),
+         "bound_ms": bound * 1e3, "bound_by": by}
+    print(f"{name}: kernel {t['ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+          f"({by}; {nbytes} bytes, {logic} logic ops, {popc} popcounts)",
+          flush=True)
+    return t
+
+
+def chain_ops(imm: int, n_bits: int) -> int:
+    """Logic ops per word of one MSB-first comparator chain: 3 for a set
+    immediate bit (and-not, or, and), 1 for a clear one."""
+    return sum(3 if (imm >> b) & 1 else 1 for b in range(n_bits))
+
+
+def phase_kernel_api(db, peaks, flush):
+    """Path e: the kernel API at SF 1 on lineitem. ``ops.predicate_range``
+    over ``l_shipdate`` with Q6's bounds equals numpy over the encoded
+    column; ``ops.fused_filter_sum`` with ``l_extendedprice`` gives the
+    exact count and sum; ``predicate_eq_imm``/``predicate_cmp_imm`` on
+    ``l_quantity`` equal numpy; each launches once. Then the four kernels'
+    times at these shapes. Returns their kernels entries."""
+    from repro_torch.core import bitslice
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import bitwise_filter as kbf
+    from repro_torch.kernels import filter_aggregate as kfa
+    from repro_torch.kernels import ops
+
+    rel = db.relations["lineitem"]
+    n = rel.n_records
+    lo, hi = q6_shipdate_range(db)
+    ship, price = rel.planes["l_shipdate"], rel.planes["l_extendedprice"]
+    qty = rel.planes["l_quantity"]
+    imm = 24
+    reset_launches()
+    rng_mask = ops.predicate_range(ship, lo, hi)
+    cnt, pcs = ops.fused_filter_sum(ship, price, rel.valid, lo, hi)
+    eq = ops.predicate_eq_imm(qty, imm)
+    lt, eq2 = ops.predicate_cmp_imm(qty, imm)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want.update(eq_imm=1, cmp_imm=1, range_mask=1, filter_sum=1)
+    if launches != want:
+        fail(f"kernel API launches {launches}, expected {want}")
+    vship = bitslice.unpack_bits(eng.to_words(ship), n)
+    vprice = bitslice.unpack_bits(eng.to_words(price), n)
+    vqty = bitslice.unpack_bits(eng.to_words(qty), n)
+    sel = (vship >= lo) & (vship < hi)
+    count, total = kfa.weight_popcounts(cnt, pcs)
+
+    def unpack(m):
+        return bitslice.unpack_mask(eng.to_words(m), n)
+
+    if not np.array_equal(unpack(rng_mask), sel):
+        fail("predicate_range over l_shipdate != numpy")
+    if (count, total) != (int(sel.sum()), int(vprice[sel].sum())):
+        fail(f"fused_filter_sum: ({count}, {total}) != numpy "
+             f"({int(sel.sum())}, {int(vprice[sel].sum())})")
+    if not (np.array_equal(unpack(eq), vqty == imm)
+            and np.array_equal(unpack(eq2), vqty == imm)
+            and np.array_equal(unpack(lt), vqty < imm)):
+        fail("predicate_eq_imm/predicate_cmp_imm on l_quantity != numpy")
+    diff = check_filter_kernels("l_shipdate at SF 1", ship, [lo, hi])
+    sum_diff = check_filter_sum("Q6 shape at SF 1", ship, price, rel.valid,
+                                lo, hi)
+    print(f"phase 4e ok: lineitem at SF {MAIN_SF}: l_shipdate in [{lo}, "
+          f"{hi}) selects {count} records, SUM(l_extendedprice) {total}; "
+          f"eq/cmp on l_quantity == numpy; one launch each", flush=True)
+
+    w = ship.shape[1]
+    nf, na = ship.shape[0], price.shape[0]
+    chains = chain_ops(lo, nf) + chain_ops(hi, nf) + 2
+    cases = {
+        "eq_imm": (39, lambda: kbf.eq_imm(ship, hi),
+                   lambda: kbf.eq_imm_torch(ship, hi),
+                   nf * w * 4 + w * 4, nf * w, 0, diff),
+        "cmp_imm": (69, lambda: kbf.cmp_imm(ship, hi),
+                    lambda: kbf.cmp_imm_torch(ship, hi),
+                    nf * w * 4 + 2 * w * 4, chain_ops(hi, nf) * w, 0, diff),
+        "range_mask": (110, lambda: kbf.range_mask(ship, lo, hi),
+                       lambda: kbf.range_mask_torch(ship, lo, hi),
+                       nf * w * 4 + w * 4, chains * w, 0, diff),
+        "filter_sum": (63,
+                       lambda: kfa.filter_sum(ship, price, rel.valid, lo, hi),
+                       lambda: kfa.filter_sum_torch(ship, price, rel.valid,
+                                                    lo, hi),
+                       (nf + na + 1) * w * 4, (chains + 1 + 2 * na) * w,
+                       (na + 1) * w, sum_diff)}
+    entries = []
+    for name, (line, fn, plain, nbytes, logic, popc, err) in cases.items():
+        shape = f"({nf}+{na}+1, {w})" if name == "filter_sum" \
+            else f"({nf}, {w})"
+        t = filter_timing(f"{name} at {shape}", fn, plain, nbytes, logic,
+                          popc, peaks, flush)
+        src = "filter_aggregate" if name == "filter_sum" else "bitwise_filter"
+        entries.append({"name": name, "route": "cuda",
+                        "source": CSRC + "bitwise_filter.cu",
+                        "replaces": f"src/repro/kernels/{src}.py:{line}",
+                        "launches": launches[name], "max_abs_err": err,
+                        "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": None})
+    return entries
+
+
+def phase_cost_model(db, fused, eager) -> None:
+    """``db.report`` of the 19 specs at ``sf_scale`` 1000 (SF 1 -> 1000).
+    The numbers are the paper's analytical PIM model, not times of this
+    card. Both engines record the compiled program as their trace, so the
+    FUSED and EAGER reports differ only through the masks' selectivities,
+    which path d found equal: their equality checks that ``db.report``
+    reads nothing engine-specific, not the eager engine itself."""
+    import dataclasses
+    from repro_torch.db import queries as Q
+    scale = 1000 / MAIN_SF
+    print(f"Paper-scale projection (SF {MAIN_SF} x {scale:g}), the paper's "
+          "analytical PIM model (Table 3/4 constants), NOT times measured "
+          "on this card:")
+    print("query     cycles  pim_ms  read_ms  baseline_ms  speedup  "
+          "read_reduction  energy_saving  endurance_10y")
+    for spec in (q.filter_only() for q in Q.all_queries()):
+        rf = db.report(fused[spec.name], sf_scale=scale)
+        re_ = db.report(eager[spec.name], sf_scale=scale)
+        if dataclasses.asdict(rf) != dataclasses.asdict(re_):
+            fail(f"{spec.name}: FUSED cost report {rf} != EAGER {re_}")
+        print(f"{spec.name:8s} {rf.cycles['total']:8d} "
+              f"{rf.pim_time_s * 1e3:7.3f} {rf.read_time_s * 1e3:8.3f} "
+              f"{rf.baseline_time_s * 1e3:12.3f} {rf.speedup:8.2f} "
+              f"{rf.read_reduction:15.1f} {rf.energy_saving:14.2f} "
+              f"{rf.endurance_ops_per_cell_10y:14.3g}", flush=True)
+    print("cost model ok: FUSED and EAGER reports equal for 19 specs (same "
+          "traces; masks equal by path d)", flush=True)
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an "
@@ -658,17 +1083,28 @@ def main() -> None:
 
     worst = phase_kernel_vs_plain()
     mat_worst, col_worst = phase_new_kernels_vs_plain()
+    filt_worst = phase_filter_kernels_vs_plain()
     peaks = peak_ops_per_s()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     db, path_a = phase_main_path(peaks, flush)
     path_b, mat = phase_host_path(db, peaks, flush)
     cols = phase_column_transform(db, flush)
+    eager_launches, eager_worst, eager = phase_eager_path(
+        db, path_a["results"])
+    api = phase_kernel_api(db, peaks, flush)
+    phase_cost_model(db, path_a["results"], eager)
     fused = fused_entry([path_a, path_b], peaks)
     fused["max_abs_err"] = max(worst, fused["max_abs_err"])
     mat["max_abs_err"] = max(mat_worst, mat["max_abs_err"])
     for c in cols:
         c["max_abs_err"] = max(col_worst, c["max_abs_err"])
-    print(json.dumps({"kernels": [fused, mat, *cols]}), flush=True)
+    for a in api:
+        a["launches"] += eager_launches[a["name"]]
+        a["max_abs_err"] = max(
+            a["max_abs_err"], filt_worst["filter_sum"]
+            if a["name"] == "filter_sum" else max(filt_worst["filter"],
+                                                  eager_worst))
+    print(json.dumps({"kernels": [fused, mat, *cols, *api]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

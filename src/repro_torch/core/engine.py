@@ -14,19 +14,29 @@ same functions over symbolic plane handles that implement exactly that
 surface (``__torch_function__``), so the CUDA kernel's instruction tape
 and the plain PyTorch path come from one lowering.
 
-The eager instruction-at-a-time ``Engine`` class and ``PimRelation.shard``
-of the reference are not ported yet (ROADMAP A8, A14).
+:class:`Engine` is the reference's eager instruction-at-a-time engine,
+the bit-level oracle of ``Engine.EAGER``: its immediate predicates go
+through ``kernels.ops`` (the CUDA kernels on a CUDA relation), the rest
+runs as torch ops, as the reference runs it in jnp. Its DML writes
+(``PlaneWrite``, ``ValidClear``) and ``PimRelation.shard`` are not
+ported yet (ROADMAP A10, A14).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
+# The bit-serial comparators against an immediate (Algorithm 1), kept
+# under their engine names for ``core.program``'s evaluator: the plain
+# versions of the eq_imm/cmp_imm kernels.
+from repro_torch.kernels.bitwise_filter import (  # noqa: F401
+    cmp_imm_torch as cmp_imm_planes, eq_imm_torch as eq_imm_planes)
 from repro_torch.kernels.common import popcount
-from . import bitslice
+from . import bitslice, isa
 
 
 # --------------------------------------------------------------------------
@@ -43,31 +53,6 @@ def _ones(plane):
 # --------------------------------------------------------------------------
 # Bit-serial comparators over planes (MSB-first; one word = 32 records)
 # --------------------------------------------------------------------------
-def eq_imm_planes(planes, imm: int):
-    """planes: (n_bits, W) -> (W,) mask of records == imm.
-
-    Immediate bits steer the op (AND v_b vs AND ~v_b) — Algorithm 1.
-    """
-    acc = _ones(planes[0])
-    for b in range(len(planes)):
-        acc = acc & planes[b] if (imm >> b) & 1 else acc & ~planes[b]
-    return acc
-
-
-def cmp_imm_planes(planes, imm: int):
-    """Returns (lt, eq) packed masks for records vs an immediate."""
-    lt = _zero(planes[0])
-    eq = _ones(planes[0])
-    for b in range(len(planes) - 1, -1, -1):   # MSB-first
-        v = planes[b]
-        if (imm >> b) & 1:
-            lt = lt | (eq & ~v)
-            eq = eq & v
-        else:
-            eq = eq & ~v
-    return lt, eq
-
-
 def cmp_planes(pa, pb):
     """(lt, eq) masks for attribute-vs-attribute comparison (a ? b)."""
     n = max(len(pa), len(pb))
@@ -231,6 +216,32 @@ def mul_planes_csa(pa, pb, out_bits: int):
     return add_planes_csa(pps, out_bits)
 
 
+def _ripple_accumulate(pps: Sequence, out_bits: int, like) -> torch.Tensor:
+    """Shift-add accumulation: one full ripple pass per extra partial
+    product; the first seeds the accumulator directly (copy-through)."""
+    acc = None
+    for pp in pps:
+        acc = (extend_planes(pp, out_bits) if acc is None
+               else add_planes(acc, pp, out_bits))
+    if acc is None:
+        return torch.stack([_zero(like)] * out_bits)
+    return acc
+
+
+def mul_imm_planes(pa, imm: int, out_bits: int) -> torch.Tensor:
+    """Shift-add multiply by an immediate, ripple-carry (the eager oracle
+    over the same partial products the carry-save path reduces)."""
+    return _ripple_accumulate(mul_partial_products(pa, None, imm, out_bits),
+                              out_bits, pa[0])
+
+
+def mul_planes(pa, pb, out_bits: int) -> torch.Tensor:
+    """Bit-serial shift-add multiply, ripple-carry: partial product b is
+    ``(pa << b) & pb[b]``."""
+    return _ripple_accumulate(mul_partial_products(pa, pb, None, out_bits),
+                              out_bits, pa[0])
+
+
 def sub_planes(pa, pb, out_bits: int):
     """a - b (two's complement), assuming a >= b for unsigned semantics.
     The ``+1`` of the complement rides the adder's carry-in."""
@@ -238,8 +249,57 @@ def sub_planes(pa, pb, out_bits: int):
 
 
 # --------------------------------------------------------------------------
-# Aggregation
+# Aggregation (paper Fig. 7 reduce; masked per §4.2)
 # --------------------------------------------------------------------------
+def popcount_total(v: torch.Tensor) -> torch.Tensor:
+    """Total set bits of the words ``v`` as a 0-d int64 tensor."""
+    return popcount(v).sum(dtype=torch.int64)
+
+
+def reduce_count(mask: torch.Tensor) -> torch.Tensor:
+    return popcount_total(mask)
+
+
+def reduce_sum_bits(planes: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-bit masked popcounts ``pc[b] = popcount(plane_b & mask)``,
+    ``(n_bits,)`` int64; the 2^b weighting stays with the caller."""
+    return popcount(planes & mask).sum(dim=-1, dtype=torch.int64)
+
+
+def reduce_sum(planes: torch.Tensor, mask: torch.Tensor) -> int:
+    """SUM = sum over b of 2^b * popcount(plane_b & mask), weighted in
+    Python ints (exact at any width: the host combine of Fig. 7)."""
+    pcs = reduce_sum_bits(planes, mask).tolist()
+    return sum(int(pc) << b for b, pc in enumerate(pcs))
+
+
+def _narrow(planes: torch.Tensor, mask: torch.Tensor, is_max: bool
+            ) -> Tuple[int, bool]:
+    """MSB-first candidate narrowing; one host sync per bit. Over an
+    empty mask MIN gives all ones and MAX zero, with ``found`` False."""
+    cand = mask
+    value = 0
+    for b in range(len(planes) - 1, -1, -1):
+        t = cand & (planes[b] if is_max else ~planes[b])
+        if bool((t != 0).any()):
+            cand = t
+            value |= int(is_max) << b
+        else:
+            cand = cand & (~planes[b] if is_max else planes[b])
+            value |= int(not is_max) << b
+    return value, bool((mask != 0).any())
+
+
+def reduce_min(planes: torch.Tensor, mask: torch.Tensor) -> Tuple[int, bool]:
+    """MIN over the masked records: ``(value, found)``."""
+    return _narrow(planes, mask, is_max=False)
+
+
+def reduce_max(planes: torch.Tensor, mask: torch.Tensor) -> Tuple[int, bool]:
+    """MAX over the masked records: ``(value, found)``."""
+    return _narrow(planes, mask, is_max=True)
+
+
 def reduce_sum_bits_grouped(planes: torch.Tensor,
                             masks: torch.Tensor) -> torch.Tensor:
     """Per-(group, bit) masked popcounts for a stack of group masks:
@@ -321,3 +381,158 @@ def relation_from_numpy(name: str, layout: bitslice.RelationLayout,
                        {a: to_planes(p, device) for a, p in planes.items()},
                        to_planes(valid, device), n_records)
 
+
+class Engine:
+    """Executes PIM instruction sequences on a :class:`PimRelation`, one
+    instruction at a time (the reference's eager engine).
+
+    Masks and derived attributes live in a register file (dicts), as the
+    paper's computation area holds intermediates inside each crossbar;
+    every executed instruction is appended to ``trace`` for the cost
+    model. The relation's device decides where the immediate predicates
+    run: ``kernels.ops`` launches the CUDA kernels on a CUDA relation and
+    their plain versions on a CPU one.
+    """
+
+    def __init__(self, relation: PimRelation):
+        self.rel = relation
+        self.masks: Dict[str, torch.Tensor] = {"__valid__": relation.valid}
+        self.derived: Dict[str, object] = {}  # planes, or a reduce's int
+        self.found: Dict[str, bool] = {}      # ReduceMinMax non-empty flags
+        self.materialized: Dict[str, Dict[str, np.ndarray]] = {}
+        self.trace: List[isa.PimInstruction] = []
+
+    # -- operand helpers ---------------------------------------------------
+    def _planes(self, attr: str) -> torch.Tensor:
+        if attr in self.derived:
+            return self.derived[attr]
+        if attr in self.masks:          # a mask viewed as a 1-bit attribute
+            return self.masks[attr][None, :]
+        return self.rel.planes[attr]
+
+    def mask(self, name: str) -> torch.Tensor:
+        return self.masks[name]
+
+    # -- execution ---------------------------------------------------------
+    def execute(self, instr: isa.PimInstruction) -> None:
+        self.trace.append(instr)
+        kind = instr.kind
+        if kind in ("EqualImm", "NotEqualImm", "LessThanImm",
+                    "GreaterThanImm"):
+            self.masks[instr.dest] = self._imm_predicate(instr)
+        elif kind == "Equal":
+            _, eq = cmp_planes(self._planes(instr.attr_a),
+                               self._planes(instr.attr_b))
+            self.masks[instr.dest] = eq
+        elif kind == "LessThan":
+            lt, eq = cmp_planes(self._planes(instr.attr_a),
+                                self._planes(instr.attr_b))
+            self.masks[instr.dest] = (lt | eq) if instr.or_equal else lt
+        elif kind == "BitwiseAnd":
+            self.masks[instr.dest] = (self.masks[instr.src_a]
+                                      & self.masks[instr.src_b])
+        elif kind == "BitwiseOr":
+            self.masks[instr.dest] = (self.masks[instr.src_a]
+                                      | self.masks[instr.src_b])
+        elif kind == "BitwiseNot":
+            if instr.src in self.masks:
+                self.masks[instr.dest] = ~self.masks[instr.src]
+            else:
+                # Attribute NOT: zero-extend to n_bits, invert every plane
+                # (the first step of imm - attr via two's complement).
+                self.derived[instr.dest] = ~extend_planes(
+                    self._planes(instr.src), instr.n_bits)
+        elif kind == "SetReset":
+            self.masks[instr.dest] = torch.full(
+                (self.rel.layout.n_words,), -1 if instr.value else 0,
+                dtype=torch.int32, device=self.rel.valid.device)
+        elif kind == "AddImm":
+            self.derived[instr.dest] = add_imm_planes(
+                self._planes(instr.attr), instr.imm, instr.n_bits)
+        elif kind == "Add":
+            self.derived[instr.dest] = add_planes(
+                self._planes(instr.attr_a), self._planes(instr.attr_b),
+                instr.n_bits)
+        elif kind == "Subtract":
+            self.derived[instr.dest] = sub_planes(
+                self._planes(instr.attr_a), self._planes(instr.attr_b),
+                instr.n_bits)
+        elif kind == "Multiply":
+            pa = self._planes(instr.attr_a)
+            self.derived[instr.dest] = (
+                mul_imm_planes(pa, instr.imm, instr.n_bits)
+                if instr.imm is not None
+                else mul_planes(pa, self._planes(instr.attr_b),
+                                instr.n_bits))
+        elif kind == "ReduceSum":
+            self.derived[instr.dest] = kops.masked_sum(
+                self._planes(instr.attr), self.masks[instr.mask])
+        elif kind == "ReduceMinMax":
+            fn = reduce_max if instr.is_max else reduce_min
+            v, found = fn(self._planes(instr.attr), self.masks[instr.mask])
+            self.derived[instr.dest] = v
+            self.found[instr.dest] = found
+        elif kind == "Materialize":
+            # The host unpack and gather of the reference's eager engine,
+            # values int64 in record order.
+            n = self.rel.n_records
+            sel = bitslice.unpack_mask(to_words(self.masks[instr.mask]), n)
+            self.materialized[instr.dest] = {
+                a: bitslice.unpack_bits(to_words(self._planes(a)), n)[sel]
+                .astype(np.int64)
+                for a in instr.attrs}
+        elif kind == "ColumnTransform":
+            # The packed mask already is the row-wise readout; kept in the
+            # trace so the cost model charges the paper's 2050 cycles.
+            self.masks[instr.dest] = self.masks[instr.mask]
+        elif kind in ("PlaneWrite", "ValidClear"):
+            raise NotImplementedError(
+                f"{kind}: DML writes are not ported yet (ROADMAP A10)")
+        else:
+            raise ValueError(f"unknown instruction {kind}")
+
+    def _imm_predicate(self, instr: isa.PimInstruction) -> torch.Tensor:
+        """The mask of one immediate comparison. An immediate the operand's
+        width cannot represent short-circuits (equal never, less always);
+        any other goes through the ``eq_imm``/``cmp_imm`` entry points."""
+        p = self._planes(instr.attr)
+        kind = instr.kind
+        if instr.imm >= 1 << p.shape[0]:
+            all_ones = kind in ("NotEqualImm", "LessThanImm")
+            return torch.full_like(p[0], -1 if all_ones else 0)
+        if kind == "EqualImm":
+            return kops.predicate_eq_imm(p, instr.imm)
+        if kind == "NotEqualImm":
+            return ~kops.predicate_eq_imm(p, instr.imm)
+        lt, eq = kops.predicate_cmp_imm(p, instr.imm)
+        if kind == "LessThanImm":
+            return (lt | eq) if instr.or_equal else lt
+        return ~lt if instr.or_equal else ~(lt | eq)
+
+    def run(self, program: Sequence[isa.PimInstruction]) -> None:
+        for ins in program:
+            self.execute(ins)
+
+    # -- readout (the "host reads" the paper charges) -----------------------
+    def read_mask(self, name: str) -> np.ndarray:
+        return bitslice.unpack_mask(to_words(self.masks[name]),
+                                    self.rel.n_records)
+
+    def read_scalar(self, name: str) -> np.ndarray:
+        v = self.derived[name]
+        return to_words(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    def read_reduce(self, name: str) -> Optional[int]:
+        """A reduce's result as a Python int; ``None`` for MIN/MAX over an
+        empty selection."""
+        if not self.found.get(name, True):
+            return None
+        return int(self.derived[name])
+
+    def read_materialized(self, name: str) -> Dict[str, np.ndarray]:
+        """``{attr: (count,) int64}`` in record order, of one executed
+        ``Materialize``."""
+        return self.materialized[name]
+
+    def count(self, mask: str) -> int:
+        return int(reduce_count(self.masks[mask] & self.rel.valid))

@@ -454,11 +454,14 @@ class ArithPlan:
     ``batches`` are runs of mutually independent derived instructions
     that execute together at the first member's position. Depth counters
     measure serialized plane-op chains (a ripple step is depth 1 per bit;
-    a 3:2 compressor level is depth 1 regardless of width).
+    a 3:2 compressor level is depth 1 regardless of width). ``steps``
+    counts the lowering-internal op kinds for
+    ``cost_model.classify_lowering``; they never add Table 4 ISA cycles.
     """
     batches: Tuple[Tuple[int, ...], ...]   # instruction-index runs, len >= 2
     depth_csa: int                         # serialized depth, CSA + batching
     depth_ripple: int                      # same program, ripple lowering
+    steps: Tuple[Tuple[str, int], ...]     # internal kind -> count
 
     @property
     def batched_indices(self) -> FrozenSet[int]:
@@ -521,6 +524,9 @@ def plan_arith(instrs: Sequence[isa.PimInstruction],
     in_batch = {i for b in batches for i in b}
     depth_csa = 0
     depth_ripple = 0
+    csa_compressions = 0
+    carry_propagate_bits = 0
+    copy_throughs = 0
 
     def member_stats(ins: isa.PimInstruction) -> Tuple[int, int]:
         """(csa tree levels, addend count) of one instruction."""
@@ -533,15 +539,23 @@ def plan_arith(instrs: Sequence[isa.PimInstruction],
         levels, k = member_stats(ins)
         w = ins.n_bits
         depth_ripple += max(0, k - 1) * w
-        if k > 1 and i not in in_batch:
+        csa_compressions += max(0, k - 2)
+        if k <= 1:
+            copy_throughs += 1
+        elif i not in in_batch:
             depth_csa += levels + w
+            carry_propagate_bits += w
     for b in batches:
         stats = [member_stats(instrs[i]) for i in b]
         live = [(lv, instrs[i].n_bits) for (lv, k), i in zip(stats, b)
                 if k > 1]
         if live:
             depth_csa += max(lv for lv, _ in live) + max(w for _, w in live)
-    return ArithPlan(tuple(batches), depth_csa, depth_ripple)
+            carry_propagate_bits += max(w for _, w in live)
+    steps = (("csa_compress", csa_compressions),
+             ("carry_propagate", carry_propagate_bits),
+             ("copy_through", copy_throughs))
+    return ArithPlan(tuple(batches), depth_csa, depth_ripple, steps)
 
 
 def frees_by_instr(n_instrs: int, last_use: Mapping[str, int],

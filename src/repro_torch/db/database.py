@@ -11,11 +11,20 @@ The counterpart of ``repro.db.database`` for single queries:
     each relation's filter and ``Materialize`` on the device, only the
     selected records copied back, then the numpy host stage
     (``db.exec``: joins, residual predicates, group-by, order/limit);
+  * ``Engine.EAGER`` — the instruction-at-a-time engine
+    (``core.engine.Engine``), the bit-level oracle: its immediate
+    predicates launch the ``eq_imm``/``cmp_imm`` kernels on a CUDA
+    device, the rest runs as torch ops, ``Materialize`` is a host
+    unpack and gather;
   * ``Engine.ORACLE`` — the numpy column-store scan (paper §5.5), the
     check FUSED is held to, with the same host stage over its own scans.
 
-Not ported yet: linked multi-spec batches (ROADMAP A7), the eager engine
-(A8), DML, faults and serving (A10–A12).
+``PimDatabase.report`` / :func:`cost_report` project a run to paper scale
+through the analytical cost model (``core.cost_model``: cycles, read
+traffic, latency, energy and endurance at any scale factor).
+
+Not ported yet: linked multi-spec batches (ROADMAP A7), DML, faults and
+serving (A10–A12).
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import analysis
+from repro_torch.core import cost_model as cm
 from repro_torch.core import engine as eng
 from repro_torch.core import isa
 from repro_torch.core import program as prog
@@ -42,7 +53,7 @@ class RelationRun:
 
     The ``agg_plane_reads*`` counters come from the fused executor's
     reduce plan (grouped popcounts vs one read per ReduceSum/MinMax) and
-    are zero on ORACLE runs, which have no plan.
+    are zero on EAGER and ORACLE runs, which have no plan.
     """
     n_records: int
     mask: np.ndarray
@@ -60,15 +71,22 @@ class Engine(enum.Enum):
     """Execution substrate of :meth:`PimDatabase.execute`.
 
     FUSED — one kernel launch per relation program.
+    EAGER — the instruction-at-a-time engine, the bit-level oracle.
     ORACLE — the numpy column-store scan baseline (paper §5.5).
     """
     FUSED = "fused"
+    EAGER = "eager"
     ORACLE = "oracle"
 
     @classmethod
     def coerce(cls, v) -> "Engine":
-        """Accept an Engine or its string value."""
-        return v if isinstance(v, Engine) else cls(str(v).lower())
+        """Accept an Engine, its string value, or a legacy ``fused=``
+        bool (True -> FUSED, False -> EAGER)."""
+        if isinstance(v, Engine):
+            return v
+        if isinstance(v, str):
+            return cls(v.lower())
+        return cls.FUSED if v else cls.EAGER
 
 
 # Result columns that are derived money at cents x percent scale.
@@ -88,7 +106,7 @@ class QueryResult:
     min/max/avg) that the ORACLE comparison uses, ``decoded_rows()`` the
     schema's presentation — and ``materialized_rows`` the records each
     relation handed the host. ``batch_stats`` holds the FUSED run's
-    launch-level accounting."""
+    launch-level accounting (``None`` on EAGER and ORACLE)."""
     spec: Q.QuerySpec
     engine: Engine = Engine.FUSED
     aggregates: Dict[str, Dict[str, object]] = dataclasses.field(
@@ -225,7 +243,8 @@ class PimDatabase:
     def _relation_run(self, rel: eng.PimRelation, rel_name: str,
                       spec: Q.QuerySpec, pred, mask: np.ndarray,
                       trace: List[isa.PimInstruction],
-                      cp: prog.CompiledProgram) -> RelationRun:
+                      cp: Optional[prog.CompiledProgram] = None
+                      ) -> RelationRun:
         cols = self.tables[rel_name]
         attrs = predicate_attrs(pred)
         sels = _conjunct_selectivities(cols, pred)
@@ -240,16 +259,20 @@ class PimDatabase:
             selectivity=float(mask.mean()) if mask.size else 0.0,
             filter_attr_bits=[rel.width_of(a) for a in attrs],
             filter_attr_sels=sels, agg_attr_bits=agg_bits,
-            agg_plane_reads=cp.agg_plane_reads,
-            agg_plane_reads_ungrouped=cp.agg_plane_reads_ungrouped,
-            n_reduce_jobs=cp.n_reduce_jobs)
+            agg_plane_reads=cp.agg_plane_reads if cp else 0,
+            agg_plane_reads_ungrouped=(cp.agg_plane_reads_ungrouped
+                                       if cp else 0),
+            n_reduce_jobs=cp.n_reduce_jobs if cp else 0)
 
     # -- execution entry point ------------------------------------------------
     def execute(self, spec: Q.QuerySpec, *,
-                engine: Union[Engine, str] = Engine.FUSED) -> QueryResult:
-        """Run one :class:`~repro_torch.db.queries.QuerySpec` on ``engine``:
-        end to end when it carries a host stage, else its masks and
-        aggregates. A list of specs raises ``NotImplementedError``."""
+                engine: Union[Engine, str, bool] = Engine.FUSED
+                ) -> QueryResult:
+        """Run one :class:`~repro_torch.db.queries.QuerySpec` on ``engine``
+        (an :class:`Engine`, its string value or a legacy ``fused=``
+        bool): end to end when it carries a host stage, else its masks
+        and aggregates. ``last_batch_stats`` is set by FUSED runs only. A
+        list of specs raises ``NotImplementedError``."""
         engine = Engine.coerce(engine)
         if not isinstance(spec, Q.QuerySpec):
             raise NotImplementedError(
@@ -258,13 +281,16 @@ class PimDatabase:
         if engine is Engine.ORACLE:
             return self._execute_baseline(spec)
         if spec.host is not None:
-            return self._execute_host(spec)
-        return self._execute_pim(spec)
+            return self._execute_host(spec, engine)
+        return self._execute_pim(spec, engine)
 
-    def _execute_pim(self, spec: Q.QuerySpec) -> QueryResult:
-        """FUSED: one compiled launch per relation program — the paper's
-        single-pass, single-readout execution model."""
+    def _execute_pim(self, spec: Q.QuerySpec, engine: Engine
+                     ) -> QueryResult:
+        """Mask/aggregate scope. FUSED: one compiled launch per relation
+        program — the paper's single-pass, single-readout execution
+        model. EAGER: the instruction-at-a-time engine (the oracle)."""
         t_all = time.perf_counter()
+        fused = engine is Engine.FUSED
         rel_runs: Dict[str, RelationRun] = {}
         aggs: Dict[str, Dict[str, object]] = {}
         rel_stats: Dict[str, Dict[str, object]] = {}
@@ -272,35 +298,51 @@ class PimDatabase:
         for rel_name, pred in spec.filters.items():
             rel = self.relations[rel_name]
             c, mask_reg, group_regs = self._compile_relation(rel, spec, pred)
-            cp = prog.compile_program(rel, c.program,
-                                      mask_outputs=(mask_reg,))
-            t0 = time.perf_counter()
-            res = prog.run_program(cp, rel)
-            dt = time.perf_counter() - t0
-            pim_s += dt
-            if group_regs:
-                aggs.update(self._finalize_aggs(group_regs, res.scalar,
-                                                res.scalar))
-            rel_stats[rel_name] = _single_relation_stats(c, cp, dt)
+            cp = None
+            if fused:
+                cp = prog.compile_program(rel, c.program,
+                                          mask_outputs=(mask_reg,))
+                t0 = time.perf_counter()
+                res = prog.run_program(cp, rel)
+                dt = time.perf_counter() - t0
+                pim_s += dt
+                if group_regs:
+                    aggs.update(self._finalize_aggs(group_regs, res.scalar,
+                                                    res.scalar))
+                mask = res.mask(mask_reg)
+                rel_stats[rel_name] = _single_relation_stats(c, cp, dt)
+            else:
+                e = eng.Engine(rel)
+                e.run(c.program)
+                if group_regs:
+                    aggs.update(self._finalize_aggs(
+                        group_regs, lambda r: int(e.read_scalar(r)),
+                        e.read_reduce))
+                mask = e.read_mask(mask_reg)
             rel_runs[rel_name] = self._relation_run(
-                rel, rel_name, spec, pred, res.mask(mask_reg),
-                list(c.program), cp)
+                rel, rel_name, spec, pred, mask, list(c.program), cp)
         wall = time.perf_counter() - t_all
-        stats = _empty_batch_stats()
-        stats.update(n_queries=1, n_dispatches=len(rel_stats), pim_s=pim_s,
-                     wall_s=wall, relations=rel_stats)
-        self.last_batch_stats = stats
-        return QueryResult(spec=spec, engine=Engine.FUSED, aggregates=aggs,
+        stats = None
+        if fused:
+            stats = _empty_batch_stats()
+            stats.update(n_queries=1, n_dispatches=len(rel_stats),
+                         pim_s=pim_s, wall_s=wall, relations=rel_stats)
+            self.last_batch_stats = stats
+        return QueryResult(spec=spec, engine=engine, aggregates=aggs,
                            relations=rel_runs, pim_s=pim_s, wall_s=wall,
                            batch_stats=stats)
 
     # -- end-to-end execution (PIM stage + host stage) -----------------------
-    def _execute_host(self, spec: Q.QuerySpec) -> QueryResult:
-        """FUSED, end to end: each relation's filter (or scan-all) and
-        ``Materialize`` run as one compiled program — the program kernel,
-        then the materialize kernel — and hand the host only the selected
-        records; the host stage (``db.exec``) joins, applies residual
-        predicates, aggregates and orders them into TPC-H result rows."""
+    def _execute_host(self, spec: Q.QuerySpec, engine: Engine
+                      ) -> QueryResult:
+        """End to end: each relation's filter (or scan-all) and
+        ``Materialize`` hand the host only the selected records; the host
+        stage (``db.exec``) joins, applies residual predicates,
+        aggregates and orders them into TPC-H result rows. FUSED runs each
+        relation as one compiled program — the program kernel, then the
+        materialize kernel; EAGER runs the instruction-at-a-time engine
+        (the oracle path)."""
+        fused = engine is Engine.FUSED
         pim_stage, host = E.split_query(spec)
         t0 = time.perf_counter()
         materialized: Dict[str, E.HostTable] = {}
@@ -312,11 +354,16 @@ class PimDatabase:
             mask_reg = (c.compile_filter(pred, with_transform=False)
                         if pred is not None else c.compile_scan_all())
             mat_reg = c.compile_materialize(mask_reg, cols)
-            cp = prog.compile_program(rel, c.program, mask_outputs=())
-            t1 = time.perf_counter()
-            vals = prog.run_program(cp, rel).materialized(mat_reg)
-            rel_stats[rel_name] = _single_relation_stats(
-                c, cp, time.perf_counter() - t1)
+            if fused:
+                cp = prog.compile_program(rel, c.program, mask_outputs=())
+                t1 = time.perf_counter()
+                vals = prog.run_program(cp, rel).materialized(mat_reg)
+                rel_stats[rel_name] = _single_relation_stats(
+                    c, cp, time.perf_counter() - t1)
+            else:
+                e = eng.Engine(rel)
+                e.run(c.program)
+                vals = e.read_materialized(mat_reg)
             materialized[rel_name] = E.HostTable(
                 {a: np.asarray(v, np.int64) for a, v in vals.items()})
             mat_rows[rel_name] = materialized[rel_name].n_rows
@@ -326,14 +373,16 @@ class PimDatabase:
         table = E.run_host_stage(host, E.ExecContext(materialized,
                                                      self.tables))
         host_s = time.perf_counter() - t0
-        stats = _empty_batch_stats()
-        stats.update(n_queries=1, n_dispatches=len(rel_stats),
-                     pim_s=sum(s["pim_s"] for s in rel_stats.values()),
-                     host_s=host_s, wall_s=pim_s + host_s,
-                     relations=rel_stats)
-        self.last_batch_stats = stats
+        stats = None
+        if fused:
+            stats = _empty_batch_stats()
+            stats.update(n_queries=1, n_dispatches=len(rel_stats),
+                         pim_s=sum(s["pim_s"] for s in rel_stats.values()),
+                         host_s=host_s, wall_s=pim_s + host_s,
+                         relations=rel_stats)
+            self.last_batch_stats = stats
         return QueryResult.from_table(spec, table, pim_s, host_s, mat_rows,
-                                      batch_stats=stats)
+                                      engine=engine, batch_stats=stats)
 
     # -- baseline (numpy scan oracle) ----------------------------------------
     def _execute_baseline(self, spec: Q.QuerySpec) -> QueryResult:
@@ -374,6 +423,15 @@ class PimDatabase:
                            columns=columns, rows=rows, host_s=host_s,
                            wall_s=time.perf_counter() - t_all,
                            materialized_rows=mat_rows)
+
+    def report(self, run: QueryResult, sf_scale: float = 1.0,
+               hw: cm.HwParams = cm.DEFAULT_HW) -> "QueryCostReport":
+        """:func:`cost_report` with this database's resident and reserved
+        plane bytes. The port has no DML yet, so no write pressure is
+        folded in (the reference's ``dml_row_ops()`` of an unmutated
+        database, ``{}``)."""
+        return cost_report(run, sf_scale, hw, relations=self.relations,
+                           dml_row_ops={})
 
 
 def _empty_batch_stats() -> Dict[str, object]:
@@ -426,3 +484,117 @@ def _conjunct_selectivities(cols, pred) -> List[float]:
     """Per-conjunct pass fractions in evaluation order (baseline model)."""
     conjs = list(pred.ps) if isinstance(pred, And) else [pred]
     return [float(Q.eval_pred(cols, c).mean()) for c in conjs]
+
+
+# --------------------------------------------------------------------------
+# Paper-scale cost report (the gem5 stand-in)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class QueryCostReport:
+    """The paper's analytical projection of one query (Figs. 8/11/15):
+    Table 4 cycles, modelled PIM and baseline times, read reduction,
+    energy saving and the endurance needed for ten years."""
+    name: str
+    kind: str
+    cycles: Dict[str, int]
+    pim_time_s: float
+    read_time_s: float
+    baseline_time_s: float
+    speedup: float
+    read_reduction: float
+    energy_saving: float
+    endurance_ops_per_cell_10y: float
+    intermediate_cells: int
+    # Device-resident plane bytes of the relations the query touched
+    # (every attribute plane plus the valid plane over the full capacity)
+    # and the reserved-but-unused share; 0 without relation handles.
+    bytes_resident: int = 0
+    bytes_reserved: int = 0
+    # Busiest-row DML cell writes folded into the endurance projection.
+    dml_row_ops: float = 0.0
+
+    def row(self) -> str:
+        return (f"{self.name},{self.kind},{self.cycles['total']},"
+                f"{self.speedup:.2f},{self.read_reduction:.1f},"
+                f"{self.energy_saving:.2f},"
+                f"{self.endurance_ops_per_cell_10y:.3g}")
+
+
+def cost_report(run: QueryResult, sf_scale: float = 1.0,
+                hw: cm.HwParams = cm.DEFAULT_HW, relations=None,
+                dml_row_ops=None) -> QueryCostReport:
+    """Project a run to paper scale (records x ``sf_scale``) and produce
+    Fig. 8/11/15-comparable numbers. The PIM cycle count does not depend
+    on the relation's size (requests broadcast to all pages); read and
+    baseline scan traffic scale linearly with it.
+
+    ``relations`` ({name: PimRelation}) adds resident/reserved plane
+    bytes of the touched relations; ``dml_row_ops`` ({name: ops}) folds
+    busiest-row DML writes into the endurance projection.
+    """
+    total = cm.ProgramCost()
+    base_bytes = 0
+    base_ops = 0.0
+    pim_bytes = 0
+    n_crossbars_busiest = 0
+    exec_pages = 0
+    trace_row_ops = 0.0
+    bytes_resident = 0
+    bytes_reserved = 0
+    dml_ops = 0.0
+    for rel_name, rr in run.relations.items():
+        if relations is not None and rel_name in relations:
+            bytes_resident += relations[rel_name].bytes_resident()
+            bytes_reserved += relations[rel_name].bytes_reserved()
+        if dml_row_ops is not None:
+            dml_ops += float(dml_row_ops.get(rel_name, 0.0))
+        n_scaled = int(rr.n_records * sf_scale)
+        cost = cm.classify_program(rr.trace)
+        for f in dataclasses.fields(cm.ProgramCost):
+            setattr(total, f.name,
+                    getattr(total, f.name) + getattr(cost, f.name))
+        # Trace-derived §6.4 write pressure (per-instruction sums).
+        trace_row_ops += analysis.write_profile(rr.trace).busiest_row_ops
+        # Baseline: scan the predicate attributes (short-circuit and
+        # cacheline model), then the aggregate attributes of passing rows.
+        sels = rr.filter_attr_sels or [1.0] * len(rr.filter_attr_bits)
+        base_bytes += cm.baseline_scan_bytes(
+            n_scaled, rr.filter_attr_bits, sels, hw)
+        for bits in rr.agg_attr_bits:
+            base_bytes += int(n_scaled * rr.selectivity * bits / 8)
+        # Host record-loop ops: predicate checks with short-circuit, then
+        # the dependent chain of the aggregation arithmetic.
+        pass_frac = 1.0
+        for sel in sels:
+            base_ops += 0.4 * n_scaled * pass_frac
+            pass_frac *= sel
+        n_xbars = max(1, -(-n_scaled // 1024))
+        exec_pages += max(1, n_xbars // 16384)
+        if run.spec.kind == "full" and rel_name == run.spec.agg_relation:
+            n_aggs = sum(2 if a.op == "avg" else 1
+                         for a in run.spec.aggregates)
+            n_groups = len(run.spec.groups or [1])
+            n_mults = sum(1 for i in rr.trace if i.kind == "Multiply")
+            base_ops += n_scaled * rr.selectivity * (
+                6.0 * n_aggs + 3.0 * n_mults + 2.0)
+            pim_bytes += cm.pim_read_bytes_aggregate(n_xbars,
+                                                     n_aggs * n_groups)
+        else:
+            pim_bytes += cm.pim_read_bytes_filter(n_scaled)
+        n_crossbars_busiest = max(n_crossbars_busiest, n_xbars)
+
+    timing = cm.query_timing(total, 0, n_crossbars_busiest, base_bytes,
+                             pim_bytes, n_modules=min(8, exec_pages),
+                             baseline_ops=base_ops, hw=hw)
+    energy = cm.query_energy(total, timing, n_crossbars_busiest, hw=hw)
+    endurance = cm.endurance_ops_per_cell(
+        total, exec_time_s=timing.pimdb_total_s, hw=hw,
+        busiest_row_ops=trace_row_ops + dml_ops)
+    return QueryCostReport(
+        run.spec.name, run.spec.kind,
+        dict(total=total.cycles_total, **total.breakdown()),
+        timing.pim_time_s, timing.read_time_s, timing.baseline_time_s,
+        timing.speedup, timing.read_reduction, energy.saving, endurance,
+        total.intermediate_cells_peak,
+        bytes_resident=bytes_resident, bytes_reserved=bytes_reserved,
+        dml_row_ops=dml_ops)

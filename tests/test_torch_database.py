@@ -126,8 +126,9 @@ def test_default_device_is_cuda(tables):
 
 
 def test_unported_scopes_raise(port_db):
-    """The host-stage specs, once refused here, now run end to end and
-    equal the ORACLE's rows; a list of specs still raises (A7)."""
+    """Every single spec now runs, on FUSED (here) and EAGER
+    (``test_torch_eager.py``) alike: the host-stage specs end to end,
+    equal to the ORACLE's rows. Only a list of specs still raises (A7)."""
     host_specs = [q for q in tq.all_queries() if q.host is not None]
     assert {q.name for q in host_specs} == {"Q3", "Q5", "Q10", "Q12", "Q14",
                                             "Q19"}
