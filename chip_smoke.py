@@ -11,9 +11,9 @@ Phases (any failure exits non-zero before the last line):
 3. Kernels vs plain, TPC-H SF 0.01, bit for bit:
    ``fused_program`` against ``fused_program_torch`` on all 34 relation
    programs of the 19 TPC-H specs, on two MIN/MAX programs (over a
-   derived expression; over an empty selection) and on a multi-block
+   derived expression; over an empty selection) and on a multi-tile
    relation whose record count is a multiple of neither 32 nor the
-   block; ``materialize`` against ``materialize_torch`` (the count and
+   tile; ``materialize`` against ``materialize_torch`` (the count and
    the count prefix) on the 16 ``Materialize`` programs of the six
    host-stage specs and on random plane stacks of widths 1, 7, 31 and 32
    at mask densities 0, 0.001, 0.5 and 1; ``bitpack``/``bitunpack``
@@ -54,7 +54,12 @@ Phases (any failure exits non-zero before the last line):
    shapes, and the times: per query the warm median of ``execute``; per
    kernel its device time (CUDA events, cold L2, the launch queued behind
    a spin kernel), one call's time with the host's launch time in it,
-   the plain version's time, the bound and what sets it.
+   the plain version's time, the bound and what sets it. The fused
+   tables give each program's tape and launch: entries, slots in the
+   recorded order and after scheduling, the tile (threads x K words per
+   thread), blocks per SM (the occupancy API) and registers per thread
+   (as ``nvcc -Xptxas -v`` counts them); a K study runs Q1's and Q15's
+   lineitem programs with K = 1, 2 and 4, each against plain.
 5. The paper-scale cost report (``db.report``, SF 1 x 1000) of the 19
    specs, equal on FUSED and EAGER (the same traces, and masks path d
    found equal): the paper's analytical model, not a measurement of the
@@ -234,9 +239,9 @@ def phase_kernel_vs_plain() -> int:
                                     Agg("count", None, "c"),
                                     Agg("max", Col("v"), "mx")])
     cp = prog.compile_program(rel, c.program, mask_outputs=(m,))
-    t = cp.tape.block
+    t = cp.tape.tile
     if n % 32 == 0 or n % t == 0 or rel.layout.n_words <= t:
-        fail(f"multi-block case is not ragged: n={n}, block={t}")
+        fail(f"multi-tile case is not ragged: n={n}, tile={t}")
     cases.append(("multi_block", rel, cp))
 
     worst = 0
@@ -318,7 +323,8 @@ def phase_main_path(peaks, flush):
           f" programs at SF {MAIN_SF}", flush=True)
 
     print("query   execute_ms  kernel_ms   call_ms busy_%  stack_ms   "
-          "plain_ms  bound_ms bound_by   tape_len/n_slots/block per relation")
+          "plain_ms  bound_ms bound_by   per relation: entries/slots "
+          "recorded>scheduled/tile=threads*K/blocks per SM/registers")
     for spec in run:
         ps = per_prog[spec.name]
         exec_ms = cuda_ms(lambda: db.execute(spec), 3)
@@ -333,13 +339,13 @@ def phase_main_path(peaks, flush):
               f"{sum(p['plain_ms'] for p in ps):10.3f} "
               f"{sum(b for b, _ in bounds) * 1e3:9.5f} "
               f"{by.pop() if len(by) == 1 else 'mixed':10s} "
-              + " ".join(f"{p['relation']}:{p['tape_len']}/{p['n_slots']}/"
-                         f"{p['block']}" for p in ps), flush=True)
+              + " ".join(tape_shape(p) for p in ps), flush=True)
     for name in ("Q6", "Q12"):
         host_profile(db, next(s for s in specs if s.name == name))
 
     progs = [p for ps in per_prog.values() for p in ps]
     print_fused_total(f"the {len(progs)} programs of path a", progs, peaks)
+    worst = max(worst, words_per_thread_study(db, flush))
     return db, {"launches": launches, "max_abs_err": worst, "progs": progs,
                 "results": {s.name: r for s, r in zip(run, results)}}
 
@@ -374,33 +380,62 @@ def fused_entry(paths, peaks) -> dict:
             "library_ms": None}
 
 
-def fused_timing(cp, rel, flush) -> dict:
-    """``fused_program`` at one program's shape: kernel vs plain bit for
-    bit (fails otherwise), its times, bytes and operations."""
+def fused_timing(cp, rel, flush, tape=None) -> dict:
+    """``fused_program`` at one program's shape (with ``tape``'s launch if
+    given): kernel vs plain bit for bit (fails otherwise), its times,
+    bytes and operations, and the tape's shape and launch."""
     from repro_torch.core import program as prog
     from repro_torch.kernels import program as kp
+    tape = tape or cp.tape
     stacked = prog.stack_sources(cp, rel)
-    diff = max_abs_diff(kp.fused_program(stacked, cp.tape),
-                        kp.fused_program_torch(stacked, cp.tape))
+    diff = max_abs_diff(kp.fused_program(stacked, tape),
+                        kp.fused_program_torch(stacked, tape))
     if diff:
         fail(f"fused_program != plain on {rel.name} at SF {MAIN_SF}: "
              f"max abs diff {diff}")
     w = stacked.shape[1]
-    logic, popc = cp.tape.word_ops()
+    logic, popc = tape.word_ops()
+    per_sm, regs = kp.occupancy(tape, stacked.device)
     return {
         "relation": rel.name, "diff": diff,
-        "kernel_ms": cuda_ms(lambda: kp.fused_program(stacked, cp.tape), 5,
+        "kernel_ms": cuda_ms(lambda: kp.fused_program(stacked, tape), 5,
                              flush, ahead=True),
-        "call_ms": cuda_ms(lambda: kp.fused_program(stacked, cp.tape), 5,
+        "call_ms": cuda_ms(lambda: kp.fused_program(stacked, tape), 5,
                            flush),
-        "plain_ms": cuda_ms(lambda: kp.fused_program_torch(stacked, cp.tape),
+        "plain_ms": cuda_ms(lambda: kp.fused_program_torch(stacked, tape),
                             2),
         "stack_ms": cuda_ms(lambda: prog.stack_sources(cp, rel), 5, flush,
                             ahead=True),
-        "bytes": (cp.tape.n_rows + cp.tape.n_masks) * w * 4,
+        "bytes": (tape.n_rows + tape.n_masks) * w * 4,
         "logic": logic * w, "popc": popc * w,
-        "tape_len": len(cp.tape), "n_slots": cp.tape.n_slots,
-        "block": cp.tape.block}
+        "tape_len": len(tape), "slots_recorded": tape.slots_recorded,
+        "n_slots": tape.n_slots, "threads": tape.launch.threads,
+        "k": tape.launch.k, "blocks_per_sm": per_sm, "regs": regs}
+
+
+def tape_shape(p) -> str:
+    """One program's tape and launch, as the fused tables print it."""
+    return (f"{p['relation']}:{p['tape_len']}/{p['slots_recorded']}>"
+            f"{p['n_slots']}/{p['threads'] * p['k']}={p['threads']}*"
+            f"{p['k']}/{p['blocks_per_sm']}/{p['regs']}")
+
+
+def words_per_thread_study(db, flush) -> int:
+    """Q1's and Q15's lineitem programs at SF 1 with K = 1, 2 and 4 words
+    per thread (each with the tile the block choice gives that K): kernel
+    == plain and the card time of each. Returns the largest difference."""
+    from repro_torch.db import queries as Q
+    worst = 0
+    for name in ("Q1", "Q15"):
+        (_, rel, cp), = programs(db, [Q.get_query(name).filter_only()])
+        for k in (1, 2, 4):
+            p = fused_timing(cp, rel, flush, cp.tape.with_words_per_thread(k))
+            worst = max(worst, p["diff"])
+            print(f"K study {name} {tape_shape(p)}: kernel "
+                  f"{p['kernel_ms']:.4f} ms"
+                  + (" (chosen)" if k == cp.tape.launch.k else ""),
+                  flush=True)
+    return worst
 
 
 def host_programs(db):

@@ -292,11 +292,11 @@ class BitwiseEvaluator:
 
 def _reduce_minmax_bits(planes, mask, is_max: bool,
                         rec: "kprog.TapeRecorder", col_start: int) -> None:
-    """MSB-first MIN/MAX narrowing, recorded on the tape. Per block the
-    kernel writes bit ``b`` of the block's extremum at column
-    ``col_start + b`` and whether the block selects anything at
+    """MSB-first MIN/MAX narrowing, recorded on the tape. Per tile the
+    kernel writes bit ``b`` of the tile's extremum at column
+    ``col_start + b`` and whether the tile selects anything at
     ``col_start + width``; :func:`combine_minmax_candidates` reduces the
-    blocks and the host maps found=False (empty selection) to None."""
+    tiles and the host maps found=False (empty selection) to None."""
     cand = mask
     for b in range(len(planes) - 1, -1, -1):
         cand = rec.narrow(cand, planes[b], is_max, col_start + b)
@@ -309,7 +309,7 @@ def combine_minmax_candidates(bits: torch.Tensor, found: torch.Tensor,
 
     ``bits`` is ``(n_candidates, n_bits)`` int32 per-candidate extremum
     bits (LSB-first), ``found`` is ``(n_candidates,)`` bool. MSB-first
-    narrowing over the candidate axis (here: the kernel's blocks).
+    narrowing over the candidate axis (here: the kernel's tiles).
     Returns ``((n_bits,) int32 extremum bits, () bool any-found)``.
     """
     n_bits = bits.shape[1]
@@ -351,8 +351,8 @@ class SumJob:
 @dataclasses.dataclass(frozen=True)
 class MinMaxJob:
     """One ReduceMinMax, lowered into the kernel at its own position:
-    ``width`` candidate bits plus a found flag per block at columns
-    ``[col_start, col_start + width]`` of the per-block MIN/MAX output."""
+    ``width`` candidate bits plus a found flag per tile at columns
+    ``[col_start, col_start + width]`` of the per-tile MIN/MAX output."""
     dest: str
     attr: str
     mask: str
@@ -370,7 +370,7 @@ class ReducePlan:
     dest_slot: Mapping[str, Tuple[int, int]]  # sum dest -> (job, mask idx)
     last_use: Mapping[str, int]               # analysis.last_use, extended
     n_pc_cols: int                            # popcount accumulator columns
-    n_mm_cols: int                            # per-block MIN/MAX columns
+    n_mm_cols: int                            # per-tile MIN/MAX columns
     plane_reads: int                          # agg plane reads/pass, grouped
     plane_reads_ungrouped: int                # one read per ReduceSum/MinMax
 
@@ -828,16 +828,17 @@ def run_program(cp: CompiledProgram, relation: eng.PimRelation
 
 
 # --------------------------------------------------------------------------
-# Lowering: the Pallas kernel's schedule, recorded as a plane-op tape
+# Lowering: the Pallas kernel's program, recorded as a plane-op tape
 # --------------------------------------------------------------------------
 def _build_tape(instrs, kernel_masks: Tuple[str, ...],
                 kernel_attrs: Tuple[str, ...], widths: Mapping[str, int],
                 plan: ReducePlan, arith: ArithPlan) -> "kprog.Tape":
     """Record the tape of one program, following the reference Pallas
-    kernel's schedule exactly: ReduceSum jobs at their ``exec_at``, CSA
-    batches at their anchor, MIN/MAX at its own position, and ``frees``
-    after each instruction; ``Materialize`` is the materialize kernel's
-    and records nothing. Rows: ``kernel_attrs`` in order, then the valid
+    kernel's schedule: ReduceSum jobs at their ``exec_at``, CSA batches
+    at their anchor, MIN/MAX at its own position, and ``frees`` after each
+    instruction; ``Materialize`` is the materialize kernel's and records
+    nothing. ``TapeRecorder.finish`` then re-orders the recorded DAG for
+    few live slots. Rows: ``kernel_attrs`` in order, then the valid
     plane; the STOREs write ``kernel_masks`` in order."""
     frees = frees_by_instr(len(instrs), plan.last_use,
                            frozenset(kernel_masks))

@@ -8,7 +8,7 @@ import torch
 from _hypothesis_compat import given, settings, st
 from repro_torch.core import bitslice as tb
 from repro_torch.core import engine as te
-from repro_torch.kernels.common import pick_block, popcount
+from repro_torch.kernels.common import popcount
 
 SEED = 123
 
@@ -129,10 +129,24 @@ def test_grouped_popcount_matches_reference(reng):
 
 
 def test_block_choice_fits_shared_memory():
-    assert pick_block(1, 0) == 1024
-    assert pick_block(56, 0) == 1024               # 56 x 4 KB = 224 KB
-    assert pick_block(57, 0) == 512
-    assert pick_block(300, 630) == 128
-    assert pick_block(1800, 0) == 32
+    """fused_program's launch: K = 2 words per thread and the block of two
+    warps or more that keeps the most words resident per SM (counted up
+    to RESIDENT_WORDS), the smaller block on a tie; one warp, then K = 1,
+    when nothing larger fits; raises past that."""
+    from repro_torch.kernels.common import (RESIDENT_WORDS, SMEM_BYTES,
+                                            Launch, plan_launch)
+    q1 = plan_launch(54 + 58, 630)                    # Q1: rows + slots
+    assert q1 == Launch(threads=256, k=2)
+    assert q1.blocks_per_sm(112, 630) == 1
+    assert q1.smem_bytes(112, 630) <= SMEM_BYTES
+    q6 = plan_launch(47 + 12, 27)
+    assert q6 == Launch(threads=96, k=2) and q6.blocks_per_sm(59, 27) == 5
+    q15 = plan_launch(13 + 4, 0)              # enough words at any size
+    assert q15 == Launch(threads=64, k=2)
+    assert q15.blocks_per_sm(17, 0) * q15.tile >= RESIDENT_WORDS
+    assert plan_launch(112, 630, k=4) == Launch(threads=128, k=4)
+    assert plan_launch(112, 630, k=1) == Launch(threads=512, k=1)
+    assert plan_launch(900, 0) == Launch(threads=32, k=2)
+    assert plan_launch(1700, 0) == Launch(threads=32, k=1)
     with pytest.raises(ValueError, match="shared memory"):
-        pick_block(1900, 0)
+        plan_launch(1900, 0)

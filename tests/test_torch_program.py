@@ -3,14 +3,20 @@
 * ``fused_program_torch`` (the kernel's plain version) equals the
   reference Pallas kernel ``repro.kernels.program.fused_program`` in
   interpret mode — masks, popcount totals and combined MIN/MAX, exactly.
-* An executor written here, with the CUDA kernel's memory model (a fixed
-  ``[slot][block][thread]`` word array written in place, tail words
-  guarded), runs every recorded tape and equals the plain version: this
-  checks the tape itself (folding, dead-entry removal, slot reuse).
+* An executor written here, with the CUDA kernel's memory model
+  (persistent blocks looping over tiles, each tile's rows staged with
+  zeros past W, K words per thread, a fixed slot array per block written
+  in place, int32 accumulators per block, one MIN/MAX row per tile), runs
+  every recorded tape and equals the plain version: this checks the tape
+  itself (folding, dead-entry removal, scheduling, slot reuse).
+* The schedule keeps Q6 within 32 slots and Q1 within 192; packed
+  entries round-trip and overflowing fields raise.
 * The planner counters equal the reference's.
 * The wrapper never falls back: a CUDA tensor without a kernel raises.
 * On a card, the kernel equals the plain version (``cuda`` marker).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -189,7 +195,7 @@ def test_plain_matches_reference_multi_tile():
     tinstrs, outs = _multi_tile_program(trel)
     rinstrs, _ = _multi_tile_program(rrel, rc_mod)
     cp = tprog.compile_program(trel, tinstrs, mask_outputs=outs)
-    assert -(-trel.layout.n_words // cp.tape.block) > 1     # several blocks
+    assert -(-trel.layout.n_words // cp.tape.tile) > 1      # several tiles
     _assert_plain_matches_reference(trel, tinstrs, rrel, rinstrs, outs)
 
 
@@ -213,56 +219,73 @@ def test_multi_tile_program_end_to_end():
 # --------------------------------------------------------------------------
 # The tape under the kernel's memory model
 # --------------------------------------------------------------------------
-def run_tape_like_kernel(stacked: np.ndarray, tape: kp.Tape):
-    """Execute a tape the way ``csrc/fused_program.cu`` does: blocks of
-    ``tape.block`` threads, one word column per thread, physical slots
-    in a fixed array written in place, words past W zero and guarded out
-    of every output."""
+def run_tape_like_kernel(stacked: np.ndarray, tape: kp.Tape, grid: int):
+    """Execute a tape the way ``csrc/fused_program.cu`` does: ``grid``
+    persistent blocks of ``tape.launch.threads`` threads, block ``i``
+    running tiles ``i, i + grid, ...``; each tile's rows staged, words
+    past W zero; thread ``t`` on its own ``k`` consecutive words; the
+    slots a fixed ``[slot][thread][k]`` array per block, written in place
+    and poisoned at the start (a read before a write in a tile would
+    show); int32 popcount accumulators per block, added to the int64
+    totals at the end; one MIN/MAX row per tile."""
+    lc = tape.launch
     rows, w = stacked.shape
-    t = tape.block
-    n_blocks = -(-w // t)
-    src = np.zeros((rows, n_blocks * t), np.uint32)
+    t, k, tile, n_rows = lc.threads, lc.k, lc.tile, tape.n_rows
+    n_tiles = -(-w // tile)
+    src = np.zeros((rows, n_tiles * tile), np.uint32)
     src[:, :w] = stacked
-    inb = (np.arange(n_blocks * t) < w).reshape(n_blocks, t)
-    S = np.zeros((tape.n_slots, n_blocks, t), np.uint32)
     masks = np.zeros((tape.n_masks, w), np.uint32)
     pc = np.zeros(tape.n_pc, np.int64)
-    mm = np.zeros((n_blocks, tape.n_mm), np.int32)
-    for op, d, a, b, c in tape.ops.tolist():
-        if op == kp.LOAD:
-            S[d] = src[a].reshape(n_blocks, t)
-        elif op == kp.STORE:
-            masks[c] = S[a].reshape(-1)[:w]
-        elif op == kp.CONST0:
-            S[d] = 0
-        elif op == kp.CONST1:
-            S[d] = 0xFFFFFFFF
-        elif op == kp.NOT:
-            S[d] = ~S[a]
-        elif op == kp.AND:
-            S[d] = S[a] & S[b]
-        elif op == kp.OR:
-            S[d] = S[a] | S[b]
-        elif op == kp.XOR:
-            S[d] = S[a] ^ S[b]
-        elif op == kp.POPC:
-            pc[c] += int(np.bitwise_count(S[a] & S[b])[inb].sum())
-        elif op in (kp.MAXSTEP, kp.MINSTEP):
-            cand = S[a].copy()
-            x = cand & (S[b] if op == kp.MAXSTEP else ~S[b])
-            x[~inb] = 0
-            has = (x != 0).any(axis=1)
-            S[d] = np.where(has[:, None], x, cand)
-            mm[:, c] = has if op == kp.MAXSTEP else ~has
-        elif op == kp.ANY:
-            mm[:, c] = ((S[a] != 0) & inb).any(axis=1)
-        else:
-            raise AssertionError(f"unknown opcode {op}")
+    mm = np.zeros((n_tiles, tape.n_mm), np.int32)
+    for block in range(grid):
+        S = np.full((tape.n_slots, t, k), 0xDEADBEEF, np.uint32)
+        acc = np.zeros(tape.n_pc, np.int64)
+        for ti in range(block, n_tiles, grid):
+            staged = src[:, ti * tile:(ti + 1) * tile].reshape(n_rows, t, k)
+            words = ti * tile + np.arange(tile).reshape(t, k)
+            inb = words < w
+
+            def get(v):
+                return staged[v] if v < n_rows else S[v - n_rows]
+
+            for op, d, a, b, c in tape.ops.tolist():
+                assert op in (kp.STORE, kp.POPC, kp.ANY) or d >= n_rows, \
+                    "an entry writes a staged row"
+                if op == kp.STORE:
+                    masks[c, words[inb]] = get(a)[inb]
+                elif op == kp.CONST0:
+                    S[d - n_rows] = 0
+                elif op == kp.CONST1:
+                    S[d - n_rows] = 0xFFFFFFFF
+                elif op == kp.NOT:
+                    S[d - n_rows] = ~get(a)
+                elif op == kp.AND:
+                    S[d - n_rows] = get(a) & get(b)
+                elif op == kp.OR:
+                    S[d - n_rows] = get(a) | get(b)
+                elif op == kp.XOR:
+                    S[d - n_rows] = get(a) ^ get(b)
+                elif op == kp.POPC:
+                    acc[c] += int(np.bitwise_count(get(a) & get(b))[inb].sum())
+                    assert acc[c] < 2**31
+                elif op in (kp.MAXSTEP, kp.MINSTEP):
+                    cand = get(a).copy()
+                    x = cand & (get(b) if op == kp.MAXSTEP else ~get(b))
+                    x[~inb] = 0
+                    has = bool(x.any())
+                    S[d - n_rows] = x if has else cand
+                    mm[ti, c] = has if op == kp.MAXSTEP else not has
+                elif op == kp.ANY:
+                    mm[ti, c] = bool((get(a)[inb] != 0).any())
+                else:
+                    raise AssertionError(f"unknown opcode {op}")
+        pc += acc
     return masks, pc, mm
 
 
-def _assert_tape_matches_plain(stacked: torch.Tensor, tape: kp.Tape):
-    want = run_tape_like_kernel(te.to_words(stacked), tape)
+def _assert_tape_matches_plain(stacked: torch.Tensor, tape: kp.Tape,
+                               grid: int = 2):
+    want = run_tape_like_kernel(te.to_words(stacked), tape, grid)
     got = kp.fused_program_torch(stacked, tape)
     np.testing.assert_array_equal(te.to_words(got[0]), want[0])
     np.testing.assert_array_equal(got[1].numpy(), want[1])
@@ -284,21 +307,107 @@ def test_tape_tail_words_are_guarded(tdb_cpu):
     words must reach no mask, popcount or MIN/MAX output."""
     rel, cp = _compiled(tdb_cpu, _spec("Qmm_expr"))[0]
     stacked = tprog.stack_sources(cp, rel)[:, :1000].contiguous()
-    assert 1000 % cp.tape.block
+    assert 1000 % cp.tape.tile
     _assert_tape_matches_plain(stacked, cp.tape)
 
 
 def test_tape_folds_constants_and_reuses_slots(tdb_cpu):
     """Q1's tape: immediates never reach the tape (no CONST entries), the
-    slot count stays far below the entry count, and every source plane
-    is loaded at most once."""
+    slot count stays far below the entry count, and the source planes
+    are operands of their own (staged once per tile): no entry writes
+    one, and every one is read."""
     rel, cp = _compiled(tdb_cpu, tq.get_query("Q1"))[0]
     ops = cp.tape.ops
     assert not np.isin(ops[:, 0], (kp.CONST0, kp.CONST1)).any()
-    loads = ops[ops[:, 0] == kp.LOAD, 2]
-    assert len(loads) == len(set(loads.tolist()))
+    writes = ~np.isin(ops[:, 0], (kp.STORE, kp.POPC, kp.ANY))
+    assert (ops[writes, 1] >= cp.tape.n_rows).all()
+    read = set(ops[:, 2].tolist()) | set(ops[np.isin(
+        ops[:, 0], (kp.AND, kp.OR, kp.XOR, kp.POPC, kp.MAXSTEP,
+                    kp.MINSTEP)), 3].tolist())
+    assert set(range(cp.tape.n_rows)) <= read
     assert cp.tape.n_slots < len(cp.tape) // 5
     assert (ops[:, 0] == kp.POPC).sum() <= cp.plan.n_pc_cols
+
+
+@pytest.mark.parametrize("sf", [SF, 0.01])
+def test_schedule_bounds_slots(sf, tdb_cpu):
+    """The depth-first schedule: Q6 within 32 slots and Q1 within 192 (at
+    SF 0.01 the tapes have SF 1's shapes; at a smaller SF widths can only
+    shrink), each below the slots of the recorded order."""
+    db = tdb_cpu if sf == SF else tdb.PimDatabase(
+        ttpch.generate(sf=sf, seed=SEED), device="cpu")
+    for qname, most in (("Q6", 32), ("Q1", 192)):
+        (_, cp), = _compiled(db, tq.get_query(qname))
+        assert cp.tape.n_slots <= most < cp.tape.slots_recorded, qname
+
+
+def test_schedule_is_a_topological_order_of_the_same_entries(tdb_cpu,
+                                                            monkeypatch):
+    """Scheduling only re-orders: the recorded and the scheduled tape have
+    the same entries (up to slot names) and give the same outputs."""
+    rel, cp = _compiled(tdb_cpu, tq.get_query("Q1"))[0]
+    monkeypatch.setattr(kp, "_schedule",
+                        lambda ops, b_first: list(range(len(ops))))
+    recorded = tprog._build_tape(cp.instrs, cp.kernel_masks,
+                                 cp.kernel_attrs, cp.source_plane_counts,
+                                 cp.plan, cp.arith)
+    assert recorded.n_slots == cp.tape.slots_recorded > cp.tape.n_slots
+    assert sorted(map(tuple, cp.tape.ops[:, [0, 4]].tolist())) == sorted(
+        map(tuple, recorded.ops[:, [0, 4]].tolist()))
+    stacked = tprog.stack_sources(cp, rel)
+    same_tiles = dataclasses.replace(recorded, launch=cp.tape.launch)
+    for got, want in zip(kp.fused_program_torch(stacked, cp.tape),
+                         kp.fused_program_torch(stacked, same_tiles)):
+        assert torch.equal(got, want)
+
+
+def test_packed_entries_round_trip_and_overflow_raises(tdb_cpu):
+    rng = np.random.default_rng(SEED)
+    ops = np.stack([rng.integers(0, 1 << bits, 1000)
+                    for _, _, bits in kp._FIELDS], axis=1)
+    ops[0] = [(1 << bits) - 1 for _, _, bits in kp._FIELDS]
+    code = kp.pack_entries(ops)
+    assert code.dtype == np.uint64
+    np.testing.assert_array_equal(kp.unpack_entries(code), ops)
+    for _, cp in _compiled(tdb_cpu, tq.get_query("Q1")):
+        tape = cp.tape
+        want = tape.ops.copy()
+        want[want[:, 0] == kp.NOT, 3] = want[want[:, 0] == kp.NOT, 2]
+        want[:, 1:4] *= tape.tile // 4         # byte offsets / 16
+        np.testing.assert_array_equal(kp.unpack_entries(tape.code), want)
+    for j, (name, _, bits) in enumerate(kp._FIELDS):
+        for bad in (1 << bits, -1):
+            wide = ops[:3].copy()
+            wide[1, j] = bad
+            with pytest.raises(ValueError, match=f"field {name}"):
+                kp.pack_entries(wide)
+
+
+def test_recorder_raises_when_a_tape_outgrows_its_fields():
+    """A popcount column past 14 bits does not fit its field: the
+    recorder refuses the tape."""
+    rec = kp.TapeRecorder()
+    rec.popcount(rec.row(0), rec.row(1), 1 << 14)
+    with pytest.raises(ValueError, match="tape field c"):
+        rec.finish(n_rows=2, n_masks=0, n_pc=(1 << 14) + 1, n_mm=0)
+
+
+@pytest.mark.parametrize("qname", ["Q1", "Q6", "Q15", "Qmm_expr",
+                                   "Qmm_empty"])
+@pytest.mark.parametrize("k", [None, 1])
+def test_tape_executor_matches_plain_over_many_tiles(tdb_cpu, qname, k):
+    """Random words, W a multiple of neither 4 nor the tile, several tiles
+    per block (two blocks), with the tape's own K and with K = 1: the
+    kernel's memory model equals the plain version."""
+    rel, cp = _compiled(tdb_cpu, _spec(qname))[0]
+    tape = cp.tape if k is None else cp.tape.with_words_per_thread(k)
+    w = 5 * tape.tile + 7
+    rng = np.random.default_rng(SEED)
+    stacked = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, (tape.n_rows, w), dtype=np.int64
+    ).astype(np.int32))
+    assert w % 4 and -(-w // tape.tile) >= 2 * 2
+    _assert_tape_matches_plain(stacked, tape, grid=2)
 
 
 # --------------------------------------------------------------------------
@@ -391,3 +500,20 @@ def test_kernel_matches_plain_on_card(tdb_cpu):
                 assert torch.equal(g, w)
     with pytest.raises(ValueError, match="rows"):
         kp.fused_program(stacked[1:], cp.tape)
+
+
+def test_pure_opcodes_are_their_truth_tables():
+    """The kernel computes every pure op as ((x & y) & A) ^ ((x ^ y) & X)
+    ^ N, A, X, N the opcode's bits 0-2 spread over the word, with NOT
+    reading its operand twice: each opcode gives its op."""
+    rng = np.random.default_rng(SEED)
+    x, y = rng.integers(0, 1 << 32, (2, 1000), dtype=np.uint64).astype(
+        np.uint32)
+    want = {kp.CONST0: np.zeros_like(x), kp.CONST1: ~np.zeros_like(x),
+            kp.AND: x & y, kp.OR: x | y, kp.XOR: x ^ y, kp.NOT: ~x}
+    for op, w in want.items():
+        assert op < kp.POPC
+        b = x if op == kp.NOT else y
+        m = [np.uint32(0xFFFFFFFF * ((op >> i) & 1)) for i in range(3)]
+        np.testing.assert_array_equal(
+            ((x & b) & m[0]) ^ ((x ^ b) & m[1]) ^ m[2], w)
