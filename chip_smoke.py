@@ -15,15 +15,21 @@ Phases (any failure exits non-zero before the last line):
    relation whose record count is a multiple of neither 32 nor the
    tile; ``materialize`` against ``materialize_torch`` (the count and
    the count prefix) on the 16 ``Materialize`` programs of the six
-   host-stage specs and on random plane stacks of widths 1, 7, 31 and 32
-   at mask densities 0, 0.001, 0.5 and 1; ``bitpack``/``bitunpack``
-   against their plain versions on random 0/1 data and all-ones words;
-   ``eq_imm``/``cmp_imm``/``range_mask`` against their plain versions on
-   every immediate predicate operand the eager engine hands them over
-   the 34 programs and on random stacks of widths 1, 7, 17, 31, 32, 33, 64 and
-   the widest operand (immediates 0, 2^n - 1, bit 31 set, bits above the
-   width), ``filter_sum`` at (nf, na) (9, 0), (17, 12), (24, 20), (32, 64).
-   The word counts there are not a multiple of any kernel's block.
+   host-stage specs, on random plane stacks of widths 1, 7, 8, 9, 16, 17,
+   31, 32 and 33 at mask densities 0, 0.001, 0.5 and 1 (an all-ones
+   word, bit 31) and at 1, 100,003 and 250,001 words (both layouts, both
+   decodes), on all nine widths together under one selected record and
+   under an all-ones mask, and from four host threads at once on one
+   stream;
+   ``bitpack``/``bitunpack`` against their plain versions on random 0/1
+   data and all-ones words; ``eq_imm``/``cmp_imm``/``range_mask``
+   against their plain versions on every immediate predicate operand the
+   eager engine hands them over the 34 programs and on random stacks of
+   widths 1, 7, 8, 9, 16, 17, 31, 32, 33, 64 and the widest operand
+   (immediates 0, 2^n - 1, bit 31 set, bits above the width), ``eq_imm``
+   also at W % 4 = 0, 1, 2, 3 and at width 1,024; ``filter_sum`` at
+   (nf, na) (9, 0), (17, 12), (24, 20), (32, 64). The word counts there
+   are not a multiple of any kernel's block.
 4. Main paths, TPC-H SF 1, each driven with the launch counts set to 0
    just before it and read just after:
    a. ``PimDatabase(tables).execute(spec)`` for the 19 ``filter_only()``
@@ -51,10 +57,14 @@ Phases (any failure exits non-zero before the last line):
       ``predicate_cmp_imm`` on ``l_quantity``, all against numpy over the
       encoded columns; each launches once.
    Then every kernel against its plain version bit for bit at those SF 1
-   shapes, and the times: per query the warm median of ``execute``; per
-   kernel its device time (CUDA events, cold L2, the launch queued behind
-   a spin kernel), one call's time with the host's launch time in it,
-   the plain version's time, the bound and what sets it. The fused
+   shapes, and the times: first the timing floor (an empty kernel timed
+   the same way, after a 64 MB write flush, a read flush and none); per
+   query the warm median of ``execute``; per kernel its device time (CUDA
+   events, cold L2, the launch queued behind a spin kernel), one call's
+   time with the host's launch time in it, the plain version's time, the
+   bound and what sets it; ``materialize`` at each path-b program;
+   ``eq_imm``/``cmp_imm`` timed and
+   bounded on each of path d's operands, summed. The fused
    tables give each program's tape and launch: entries, slots in the
    recorded order and after scheduling, the tile (threads x K words per
    thread), blocks per SM (the occupancy API) and registers per thread
@@ -92,6 +102,9 @@ LOGIC_PER_CLOCK_SM = 64
 POPC_PER_CLOCK_SM = 16
 CSRC = "src/repro_torch/kernels/csrc/"
 HOST_SPECS = ("Q3", "Q5", "Q10", "Q12", "Q14", "Q19")
+# Random materialize widths: each decode bucket's edges (8, 16, 32), and
+# 33 (planes past 32 add nothing).
+MAT_WIDTHS = (1, 7, 8, 9, 16, 17, 31, 32, 33)
 N_HOST_PROGRAMS = 16
 # A spin of about 2.5 ms at the H100's 1,980 MHz: long enough for the host
 # to queue a wrapper's launches behind it (tens of microseconds).
@@ -104,19 +117,23 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None,
-            ahead: bool = False) -> float:
+            ahead: bool = False, read_flush: bool = False) -> float:
     """Median milliseconds of ``fn`` between two CUDA events, after one
-    warm-up call; ``flush`` is overwritten before each timed call so the
-    50 MB L2 cache starts cold. Without ``ahead`` the interval includes
-    the host's time to launch (the device waits for it); with ``ahead`` a
-    spin kernel runs first, so ``fn``'s launches are queued before the
-    start event is reached and the interval is the device's own time."""
+    warm-up call; ``flush`` is overwritten (read, with ``read_flush``)
+    before each timed call so the 50 MB L2 cache starts cold. Without
+    ``ahead`` the interval includes the host's time to launch (the device
+    waits for it); with ``ahead`` a spin kernel runs first, so ``fn``'s
+    launches are queued before the start event is reached and the interval
+    is the device's own time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            if read_flush:
+                flush.sum()
+            else:
+                flush.zero_()
         if ahead:
             torch.cuda._sleep(AHEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -127,6 +144,31 @@ def cuda_ms(fn, reps: int, flush: torch.Tensor | None = None,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timing_floor(flush) -> dict:
+    """The card time of a kernel that does nothing (``csrc/timing.cu``, one
+    block), timed as every kernel here is: queued behind a spin, after a 64
+    MB write flush (the method's own), a 64 MB read flush, and none."""
+    import ctypes
+    from repro_torch.kernels import build
+
+    def bind(lib):
+        lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.empty_launch.restype = ctypes.c_int
+    lib = build.library("timing", bind)
+
+    def empty():
+        if lib.empty_launch(1, torch.cuda.current_stream().cuda_stream):
+            fail("empty kernel launch failed")
+    floor = {"write": cuda_ms(empty, 21, flush, ahead=True),
+             "read": cuda_ms(empty, 21, flush, ahead=True, read_flush=True),
+             "none": cuda_ms(empty, 21, ahead=True)}
+    print(f"timing floor (empty kernel, 1 block, queued behind a spin, "
+          f"median of 21): {floor['write']:.4f} ms after a 64 MB write "
+          f"flush, {floor['read']:.4f} ms after a 64 MB read flush, "
+          f"{floor['none']:.4f} ms with no flush", flush=True)
+    return floor
 
 
 def host_profile(db, spec, top: int = 8) -> None:
@@ -477,16 +519,46 @@ def check_materialize(what, planes, mask) -> tuple[int, int]:
     """materialize vs materialize_torch on the card: the count and the
     count prefix, bit for bit. Returns (max abs diff, count)."""
     from repro_torch.kernels import materialize as km
-    got, cnt = km.materialize(planes, mask)
     want, wcnt = km.materialize_torch(planes, mask)
-    torch.cuda.synchronize()
     n = int(wcnt)
+    got, cnt = km.materialize_kernel(planes, mask)
+    torch.cuda.synchronize()
     if int(cnt) != n:
         fail(f"materialize count {int(cnt)} != plain {n} on {what}")
     diff = max_abs_diff([got[:, :n]], [want[:, :n]])
     if diff:
         fail(f"materialize != plain on {what}: max abs diff {diff}")
     return diff, n
+
+
+def check_materialize_threads(planes, mask, n_threads=4, calls=25) -> None:
+    """materialize from ``n_threads`` host threads at once, all on the
+    default stream, ``calls`` each: every result equals plain (the
+    look-back kernel's state is shared by the stream's launches)."""
+    import threading
+    from repro_torch.kernels import materialize as km
+    want, wcnt = km.materialize_torch(planes, mask)
+    n = int(wcnt)
+    results, errors = [], []
+
+    def run():
+        try:
+            for _ in range(calls):
+                results.append(km.materialize_kernel(planes, mask))
+        except Exception as e:          # reported below, fails the run
+            errors.append(e)
+    threads = [threading.Thread(target=run) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if errors:
+        fail(f"materialize from {n_threads} threads raised: {errors[0]}")
+    for got, cnt in results:
+        if int(cnt) != n or max_abs_diff([got[:, :n]], [want[:, :n]]):
+            fail(f"materialize from {n_threads} threads on one stream != "
+                 "plain")
 
 
 def check_column_transform(what, words) -> int:
@@ -518,19 +590,34 @@ def phase_new_kernels_vs_plain() -> tuple[int, int]:
         worst = max(worst, check_materialize(f"{name}/{rel.name}", planes,
                                              mask)[0])
     g = torch.Generator().manual_seed(SEED)
-    n_words = 100_003                  # a multiple of no block (256, 8)
-    for width in (1, 7, 31, 32):
-        planes = torch.randint(-(1 << 31), 1 << 31, (width, n_words),
+    # Word counts that are a multiple of no block (256, 8): 250,001 words
+    # are more tiles than the card holds at once (the two-pass layout),
+    # 100,003 and 1 fewer (the look-back). Density 0.001 leaves every warp
+    # sparse (the lane-by-lane decode), 0.5 and 1 dense (the transpose).
+    big, n_words = 250_001, 100_003
+    for width in MAT_WIDTHS:
+        planes = torch.randint(-(1 << 31), 1 << 31, (width, big),
                                dtype=torch.int32, generator=g)
         planes[-1, ::3] |= -(1 << 31)   # bit 31 set in every third word
+        planes[:, 5] = -1               # an all-ones word
         for density in (0.0, 0.001, 0.5, 1.0):
-            bits = (torch.rand((n_words, 32), generator=g) < density)
+            bits = (torch.rand((big, 32), generator=g) < density)
             mask = kb.bitpack_torch(bits.to(torch.int32))
-            for w in (n_words, 1):
+            for w in (big, n_words, 1):
                 worst = max(worst, check_materialize(
                     f"random width {width} density {density} W={w}",
                     [planes[:, :w].contiguous().cuda()],
                     mask[:w].contiguous().cuda())[0])
+    one = torch.zeros(n_words, dtype=torch.int32)
+    one[n_words // 2] = -(1 << 31)      # a single selected record
+    mixed = [torch.randint(-(1 << 31), 1 << 31, (width, n_words),
+                           dtype=torch.int32, generator=g).cuda()
+             for width in MAT_WIDTHS]
+    for what, mask in (("one record", one), ("all-ones mask",
+                                             torch.full_like(one, -1))):
+        worst = max(worst, check_materialize(
+            f"widths {MAT_WIDTHS} together, {what}", mixed, mask.cuda())[0])
+    check_materialize_threads(mixed, torch.full_like(one, -1).cuda())
     col = 0
     for what, words in (
             ("random words", torch.randint(-(1 << 31), 1 << 31, (n_words,),
@@ -541,8 +628,9 @@ def phase_new_kernels_vs_plain() -> tuple[int, int]:
                                      dtype=torch.int32))):
         col = max(col, check_column_transform(what, words.cuda()))
     print(f"phase 3 ok: materialize == plain on {N_HOST_PROGRAMS} programs "
-          f"at SF {SMOKE_SF} and 32 random cases; bitpack/bitunpack == "
-          "plain on 3 cases", flush=True)
+          f"at SF {SMOKE_SF}, {12 * len(MAT_WIDTHS) + 2} random cases "
+          f"(widths {MAT_WIDTHS}) and from 4 threads on one stream; "
+          "bitpack/bitunpack == plain on 3 cases", flush=True)
     return worst, col
 
 
@@ -694,7 +782,9 @@ def phase_column_transform(db, flush):
 
 
 IMM_KINDS = ("EqualImm", "NotEqualImm", "LessThanImm", "GreaterThanImm")
-FILTER_WIDTHS = (1, 7, 17, 31, 32, 33, 64)
+FILTER_WIDTHS = (1, 7, 8, 9, 16, 17, 31, 32, 33, 64)
+# eq_imm alone: stacks as wide as the kernels take, at W % 4 = 0..3.
+EQ_WIDE = (1024,)
 FILTER_SUM_SHAPES = ((9, 0), (17, 12), (24, 20), (32, 64))
 
 
@@ -762,6 +852,26 @@ def check_filter_kernels(what, planes, imms) -> int:
     return worst
 
 
+def check_eq_imm_ragged(what, planes, imms) -> int:
+    """eq_imm vs eq_imm_torch on the card for the stack cut to each word
+    count W - k, k = 0..3, so W % 4 takes every value (two words a thread
+    where W is even, one else). Returns the max abs diff
+    (0, or the run fails)."""
+    from repro_torch.kernels import bitwise_filter as kbf
+    worst = 0
+    for k in range(4):
+        x = planes[:, :planes.shape[1] - k].contiguous().cuda()
+        for imm in imms:
+            diff = max_abs_diff([kbf.eq_imm(x, imm)],
+                                [kbf.eq_imm_torch(x, imm)])
+            if diff:
+                fail(f"eq_imm != plain on {what} at W={x.shape[1]}, imm "
+                     f"{imm:#x}: max abs diff {diff}")
+            worst = max(worst, diff)
+    torch.cuda.synchronize()
+    return worst
+
+
 def check_filter_sum(what, fplanes, aplanes, valid, lo, hi) -> int:
     """filter_sum vs filter_sum_torch on the card: count and per-bit
     popcounts exactly. Returns the max abs diff."""
@@ -800,16 +910,21 @@ def eager_programs(db, specs, hosts):
     return out
 
 
-def check_eager_operands(progs) -> tuple[int, int, int]:
+def check_eager_operands(progs, timing=None):
     """Step an eager ``Engine`` through each program as ``execute`` runs
     it and, before each immediate predicate whose immediate its operand
     can represent, hold eq_imm/cmp_imm/range_mask against their plain
     versions on that operand and immediate: the very inputs the eager
     path hands the kernels (relation planes, derived attributes, masks).
-    A program stops after its last immediate predicate. Returns (max abs
-    diff, operands checked, widest operand in bits)."""
+    A program stops after its last immediate predicate. With ``timing``
+    (peaks, flush), each operand's own kernel (eq_imm for an (in)equality,
+    cmp_imm for an order comparison, as the eager path launches them) is
+    also timed on the card and bounded. Returns (max abs diff, operands
+    checked, widest operand in bits, {kernel: [(shape, card ms, bound
+    ms)]} or None)."""
     from repro_torch.core import engine as eng
     worst = n_ops = widest = 0
+    times = {"eq_imm": [], "cmp_imm": []} if timing else None
     for label, rel, instrs in progs:
         last = max((k for k, i in enumerate(instrs) if i.kind in IMM_KINDS),
                    default=-1)
@@ -822,8 +937,44 @@ def check_eager_operands(progs) -> tuple[int, int, int]:
                     worst = max(worst, check_filter_kernels(
                         f"{label} {i.attr} {tuple(p.shape)}", p, [i.imm]))
                     n_ops += 1
+                    if timing:
+                        times_operand(times, i, p, *timing)
             e.execute(i)
-    return worst, n_ops, widest
+    return worst, n_ops, widest, times
+
+
+def times_operand(times, ins, planes, peaks, flush) -> None:
+    """Card time and bound of the kernel the eager path launches for the
+    immediate predicate ``ins`` on ``planes``, appended to ``times``."""
+    from repro_torch.kernels import bitwise_filter as kbf
+    nb, w = planes.shape
+    if ins.kind in ("EqualImm", "NotEqualImm"):
+        name, fn = "eq_imm", lambda: kbf.eq_imm(planes, ins.imm)
+        nbytes, logic = nb * w * 4 + w * 4, nb * w
+    else:
+        name, fn = "cmp_imm", lambda: kbf.cmp_imm(planes, ins.imm)
+        nbytes, logic = nb * w * 4 + 2 * w * 4, chain_ops(ins.imm, nb) * w
+    bound, _ = bound_s(nbytes, logic, 0, peaks)
+    times[name].append(((nb, w), cuda_ms(fn, 5, flush, ahead=True),
+                        bound * 1e3))
+
+
+def print_operand_times(times, floor) -> None:
+    """Per kernel: launches, summed card time, summed bound and the floor
+    times the launches, then the same by operand shape."""
+    for name, rows in times.items():
+        ms, bound = sum(r[1] for r in rows), sum(r[2] for r in rows)
+        print(f"{name} over path d's {len(rows)} operands at SF {MAIN_SF}: "
+              f"card {ms:.4f} ms (sum of each launch's median), bound "
+              f"{bound:.5f} ms, floor x {len(rows)} = "
+              f"{floor['write'] * len(rows):.4f} ms", flush=True)
+        shapes = {}
+        for shape, t, b in rows:
+            n, st, sb = shapes.get(shape, (0, 0.0, 0.0))
+            shapes[shape] = (n + 1, st + t, sb + b)
+        print(f"  {name} by (bits, words): " + "; ".join(
+            f"{shape}: {n} x {st / n:.4f} ms (bound {sb / n:.5f})"
+            for shape, (n, st, sb) in sorted(shapes.items())), flush=True)
 
 
 def phase_filter_kernels_vs_plain() -> dict:
@@ -837,7 +988,7 @@ def phase_filter_kernels_vs_plain() -> dict:
     from repro_torch.db import tpch
 
     db = D.PimDatabase(tpch.generate(sf=SMOKE_SF, seed=SEED))
-    worst, n_ops, widest = check_eager_operands(
+    worst, n_ops, widest, _ = check_eager_operands(
         eager_programs(db, [s.filter_only() for s in Q.all_queries()], []))
     g = torch.Generator().manual_seed(SEED)
     n_words = 100_003                       # a multiple of no block (256)
@@ -852,6 +1003,15 @@ def phase_filter_kernels_vs_plain() -> dict:
                 (1 << width) | (1 << (width + 9)) | 6]
         worst = max(worst, check_filter_kernels(
             f"random width {width}", planes.cuda(), imms))
+        worst = max(worst, check_eq_imm_ragged(f"random width {width}",
+                                               planes, imms))
+    for width in EQ_WIDE:
+        planes = torch.randint(-(1 << 31), 1 << 31, (width, 20_001),
+                               dtype=torch.int32, generator=g)
+        top = (1 << width) - 1
+        worst = max(worst, check_eq_imm_ragged(
+            f"random width {width}", planes, [0, top, top ^ 0x55,
+                                              (1 << width) | 6]))
     sum_worst = 0
     for nf, na in FILTER_SUM_SHAPES:
         fp = torch.randint(-(1 << 31), 1 << 31, (nf, n_words),
@@ -867,19 +1027,21 @@ def phase_filter_kernels_vs_plain() -> dict:
                 ap.cuda(), valid.cuda(), lo, hi))
     print(f"phase 3 ok: eq_imm/cmp_imm/range_mask == plain on {n_ops} "
           f"eager operands at SF {SMOKE_SF} (widest {widest} bits) and "
-          f"widths {sorted(set(FILTER_WIDTHS) | {widest})}; filter_sum == "
+          f"widths {sorted(set(FILTER_WIDTHS) | {widest})} (eq_imm also at "
+          f"W % 4 = 0..3 and widths {EQ_WIDE}); filter_sum == "
           f"plain at (nf, na) {list(FILTER_SUM_SHAPES)}", flush=True)
     return {"filter": worst, "filter_sum": sum_worst}
 
 
-def phase_eager_path(db, fused_results):
+def phase_eager_path(db, fused_results, peaks, flush, floor):
     """Path d: the 19 ``filter_only()`` specs, the two MIN/MAX specs and
     the six host-stage specs on ``engine="eager"`` at SF 1, checked against
     ORACLE (and FUSED's masks and aggregates); eq_imm/cmp_imm launch once
     per representable immediate predicate of the traces, and nothing else
     launches. Then eq_imm/cmp_imm/range_mask against their plain versions
-    on every operand and immediate the path handed them. Returns (launch
-    counts, worst diff, {name: eager result})."""
+    on every operand and immediate the path handed them, each operand's
+    eq_imm/cmp_imm launch timed. Returns (launch counts, worst diff, {name:
+    eager result})."""
     from repro_torch.db import database as D
     from repro_torch.db import queries as Q
 
@@ -921,13 +1083,15 @@ def phase_eager_path(db, fused_results):
           f"specs at SF {MAIN_SF} on EAGER == ORACLE (and FUSED); launches "
           f"{ {k: v for k, v in launches.items() if v} }, fused_program and "
           f"materialize 0", flush=True)
-    worst, n_ops, widest = check_eager_operands(progs)
+    worst, n_ops, widest, times = check_eager_operands(progs,
+                                                       (peaks, flush))
     if n_ops != want_eq + want_cmp:
         fail(f"checked {n_ops} eager operands, the path launched "
              f"{want_eq + want_cmp} eq_imm/cmp_imm kernels")
     print(f"phase 4d ok: eq_imm/cmp_imm/range_mask == plain on all {n_ops} "
           f"operands the eager path handed them at SF {MAIN_SF} "
           f"({len(progs)} programs, up to {widest} bits wide)", flush=True)
+    print_operand_times(times, floor)
     print("query     eager_ms   (EAGER execute, warm median of 3)")
     for spec in specs + hosts:
         ms = cuda_ms(lambda: db.execute(spec, engine="eager"), 3)
@@ -1121,11 +1285,12 @@ def main() -> None:
     filt_worst = phase_filter_kernels_vs_plain()
     peaks = peak_ops_per_s()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    floor = timing_floor(flush)
     db, path_a = phase_main_path(peaks, flush)
     path_b, mat = phase_host_path(db, peaks, flush)
     cols = phase_column_transform(db, flush)
     eager_launches, eager_worst, eager = phase_eager_path(
-        db, path_a["results"])
+        db, path_a["results"], peaks, flush, floor)
     api = phase_kernel_api(db, peaks, flush)
     phase_cost_model(db, path_a["results"], eager)
     fused = fused_entry([path_a, path_b], peaks)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import threading
 from typing import (Callable, Dict, FrozenSet, List, Mapping, Optional,
                     Sequence, Tuple)
@@ -578,7 +579,9 @@ class LruFnCache:
     layout reuses the recorded tape (PimDatabase constructs a fresh
     Compiler per run). Bounded because the key includes the whole
     instruction tuple: a long-lived process answering ad-hoc queries
-    would otherwise keep every tape it ever recorded."""
+    would otherwise keep every tape it ever recorded. ``hits``,
+    ``misses`` and ``evictions`` count as the reference's cache counts
+    them."""
 
     def __init__(self, capacity: int):
         if capacity < 1:
@@ -587,6 +590,9 @@ class LruFnCache:
             collections.OrderedDict()
         self._lock = threading.Lock()
         self.capacity = capacity
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
 
     def __len__(self) -> int:
         return len(self._data)
@@ -594,19 +600,53 @@ class LruFnCache:
     def get(self, key: tuple):
         with self._lock:
             fn = self._data.get(key)
-            if fn is not None:
-                self._data.move_to_end(key)
+            if fn is None:
+                self.misses += 1
+                return None
+            self._data.move_to_end(key)
+            self.hits += 1
             return fn
 
     def put(self, key: tuple, fn) -> None:
         with self._lock:
             self._data[key] = fn
             self._data.move_to_end(key)
-            while len(self._data) > self.capacity:
-                self._data.popitem(last=False)
+            self._evict()
+
+    def set_capacity(self, capacity: int) -> None:
+        if capacity < 1:
+            raise ValueError("cache capacity must be >= 1")
+        with self._lock:
+            self.capacity = capacity
+            self._evict()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._data.clear()
+
+    def _evict(self) -> None:
+        """Drop least-recently-used entries down to ``capacity`` (the
+        caller holds the lock)."""
+        while len(self._data) > self.capacity:
+            self._data.popitem(last=False)
+            self.evictions += 1
 
 
-_FN_CACHE = LruFnCache(capacity=128)
+_FN_CACHE = LruFnCache(
+    capacity=int(os.environ.get("REPRO_PROGRAM_CACHE_CAPACITY", "128")))
+
+
+def set_program_cache_capacity(capacity: int) -> None:
+    """Resize the tape LRU (evicts the oldest entries now)."""
+    _FN_CACHE.set_capacity(capacity)
+
+
+def program_cache_stats() -> Dict[str, int]:
+    """Hit/miss/eviction counters, size and capacity of the tape LRU, under
+    the reference's keys."""
+    return {"hits": _FN_CACHE.hits, "misses": _FN_CACHE.misses,
+            "evictions": _FN_CACHE.evictions, "size": len(_FN_CACHE),
+            "capacity": _FN_CACHE.capacity}
 
 
 def program_signature(instrs: Tuple[isa.PimInstruction, ...],

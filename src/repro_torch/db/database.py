@@ -483,7 +483,13 @@ def predicate_attrs_of_expr(e) -> List[str]:
 def _conjunct_selectivities(cols, pred) -> List[float]:
     """Per-conjunct pass fractions in evaluation order (baseline model)."""
     conjs = list(pred.ps) if isinstance(pred, And) else [pred]
-    return [float(Q.eval_pred(cols, c).mean()) for c in conjs]
+    sels = []
+    for c in conjs:
+        try:
+            sels.append(float(Q.eval_pred(cols, c).mean()))
+        except Exception:
+            sels.append(1.0)
+    return sels
 
 
 # --------------------------------------------------------------------------

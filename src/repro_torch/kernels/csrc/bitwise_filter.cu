@@ -21,20 +21,44 @@
 // filter_sum, 1 and, 1 popcount and 1 add per aggregate plane, below the
 // integer pipes' rates (popcount is the scarcer, 16 per clock per SM).
 //
-// The design: one thread per word, loads coalesced along the word axis
-// straight into registers (no shared memory for the masks), the plane
-// loads independent of the chain so they overlap. The Pallas kernels
-// unroll on the immediate at trace time; here the immediate is a runtime
-// argument (its low n_bits bits, 64 to a word), and the branch on its bit
-// b is uniform across the grid, so one build serves every immediate.
-// Bits at or above n_bits are ignored, as the Pallas kernels ignore them.
-// eq_imm/cmp_imm/range_mask loop grid-stride over the words; filter_sum
+// eq_imm (redesigned). The first port gave each thread one word and
+// walked a runtime n_bits loop 4 planes at a time: at most 4 loads in
+// flight per thread, dependent round trips to memory before the store, a
+// branch on the immediate's bit per plane. Now a thread issues the loads
+// of all its planes before folding any: the kernel is instantiated for
+// stacks of <= 8, <= 16 and <= 32 planes (path d hands it 1-8 bit stacks)
+// and reads wider stacks 16 planes at a time, up to kMaxBits. The
+// immediate folds without a branch, acc &= ~(v ^ (0 - bit)). The grid is
+// at most what the card holds at once (SM count x resident blocks, from
+// the occupancy API), grid-striding past it. One launch shape serves
+// every stack: 256-thread blocks, two consecutive words a thread in one
+// 8-byte load per plane where W is even and the pointers 8-byte aligned
+// (every path-d operand), else one word. Two words a thread beat one at
+// every path-d shape on an H100 (one word was 10 % slower than the first
+// port at (12, 188,416)); four with 16-byte loads, and a rule choosing
+// 128-thread blocks for small relations, gained nothing. Measured
+// (chip_smoke.py on an H100, PERF.md): a launch costs the timing method's
+// floor, an empty kernel's ~5 us, plus the plane bytes at about 2 TB/s,
+// so (12, 188,416) takes ~10 us against a 2.9 us bytes bound, and path
+// d's launches, on 1-8 bit stacks, 6-7 us each: the floor, not the
+// kernel, sets their time.
+//
+// cmp_imm, range_mask and filter_sum keep the first port's design: one
+// thread per word, loads coalesced along the word axis straight into
+// registers (no shared memory for the masks), the plane loads independent
+// of the chain so they overlap. The Pallas kernels unroll on the
+// immediate at trace time; here the immediate is a runtime argument (its
+// low n_bits bits, 64 to a word), and the branch on its bit b is uniform
+// across the grid, so one build serves every immediate. Bits at or above
+// n_bits are ignored, as the Pallas kernels ignore them.
+// cmp_imm/range_mask loop grid-stride over the words; filter_sum
 // takes one word per thread, reduces each column across the warp with
 // __reduce_add_sync into an int32 shared accumulator (at most 32 * 256
 // per block, exact) and writes the block's row of partials (n_blocks,
 // na + 1) with plain stores, so nothing depends on block order: the
 // Pallas kernel's per-tile partials.
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 constexpr int kThreads = 256;              // kernels/bitwise_filter.py THREADS
@@ -76,19 +100,51 @@ __device__ __forceinline__ uint32_t range_word(
   return ~lt_lo & lt_hi;
 }
 
+// eq_imm: every plane of a thread's words in flight at once. Each thread
+// takes K consecutive words (one 4K-byte load per plane), issues the loads
+// of NB planes before folding any, and folds the immediate without a
+// branch: acc &= ~(v ^ m_b), m_b = 0 - bit b. Planes at or past n_bits
+// load as 0 against a 0 bit of the immediate (its bits at or above n_bits
+// are zero), which leaves acc alone. A stack wider than NB is read NB
+// planes at a time.
+template <int K> struct WordsOf;
+template <> struct WordsOf<1> { using T = uint32_t; };
+template <> struct WordsOf<2> { using T = uint2; };
+
+template <int NB, int K>
 __global__ void __launch_bounds__(kThreads)
 eq_imm_kernel(const uint32_t* __restrict__ planes, int n_bits,
               long long n_words, const __grid_constant__ ImmBits imm,
               uint32_t* __restrict__ out) {
-  for (long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
-       w < n_words; w += (long long)gridDim.x * kThreads) {
-    uint32_t acc = 0xffffffffu;
-#pragma unroll 4
-    for (int b = 0; b < n_bits; ++b) {
-      const uint32_t v = planes[(long long)b * n_words + w];
-      acc &= imm_bit(imm, b) ? v : ~v;
+  using Vec = typename WordsOf<K>::T;
+  const long long n_groups = n_words / K;
+  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+       g < n_groups; g += (long long)gridDim.x * kThreads) {
+    uint32_t acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = ~0u;
+    for (int b0 = 0; b0 < n_bits; b0 += NB) {
+      uint32_t v[NB][K];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        Vec q;
+        if (b0 + i < n_bits)
+          q = __ldg(reinterpret_cast<const Vec*>(
+                        planes + (long long)(b0 + i) * n_words) + g);
+        else
+          memset(&q, 0, sizeof q);
+        memcpy(v[i], &q, sizeof q);
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const uint32_t m = 0u - (uint32_t)imm_bit(imm, b0 + i);
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc[k] &= ~(v[i][k] ^ m);
+      }
     }
-    out[w] = acc;
+    Vec q;
+    memcpy(&q, acc, sizeof q);
+    reinterpret_cast<Vec*>(out)[g] = q;
   }
 }
 
@@ -164,6 +220,42 @@ static unsigned n_blocks(long long n_words) {
   return (unsigned)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
+// One eq_imm instance over the stack: a grid of at most the blocks the
+// card holds at once (SM count x the instance's resident blocks per SM,
+// from the occupancy API, cached per device ordinal), so the stack is
+// read in one wave.
+template <int NB, int K>
+static void eq_imm_run(const uint32_t* planes, int n_bits, long long n_words,
+                       const ImmBits& imm, uint32_t* out,
+                       cudaStream_t stream) {
+  static int most[16];                   // 0: unknown
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& r = most[dev & 15];
+  if (r == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, eq_imm_kernel<NB, K>, kThreads, 0);
+    r = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const long long need = (n_words / K + kThreads - 1) / kThreads;
+  eq_imm_kernel<NB, K><<<(unsigned)(need < r ? need : r), kThreads, 0,
+                         stream>>>(planes, n_bits, n_words, imm, out);
+}
+
+template <int K>
+static void eq_imm_widths(const uint32_t* planes, int n_bits,
+                          long long n_words, const ImmBits& imm,
+                          uint32_t* out, cudaStream_t stream) {
+  if (n_bits <= 8)
+    eq_imm_run<8, K>(planes, n_bits, n_words, imm, out, stream);
+  else if (n_bits <= 16 || n_bits > 32)  // wider: 16 planes at a time
+    eq_imm_run<16, K>(planes, n_bits, n_words, imm, out, stream);
+  else
+    eq_imm_run<32, K>(planes, n_bits, n_words, imm, out, stream);
+}
+
 // Launch on `stream`; each returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue without launching when a width is outside
 // [1, 1024] (na: [0, 1024]) or filter_sum's partials do not have one row
@@ -174,8 +266,14 @@ extern "C" int eq_imm_launch(const void* planes, int n_bits,
                              void* stream) {
   ImmBits ib;
   if (!load_imm(imm, n_bits, &ib)) return (int)cudaErrorInvalidValue;
-  eq_imm_kernel<<<n_blocks(n_words), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)planes, n_bits, n_words, ib, (uint32_t*)out);
+  // Two words a thread where every plane row and the output are 8-byte
+  // aligned (W even, as every relation's at SF 1), else one.
+  const uint32_t* p = (const uint32_t*)planes;
+  uint32_t* o = (uint32_t*)out;
+  if (n_words % 2 == 0 && (uintptr_t)p % 8 == 0 && (uintptr_t)o % 8 == 0)
+    eq_imm_widths<2>(p, n_bits, n_words, ib, o, (cudaStream_t)stream);
+  else
+    eq_imm_widths<1>(p, n_bits, n_words, ib, o, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,7 @@ plain version leaves zeros.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -28,8 +28,8 @@ from .common import check_int32
 
 WORD_BITS = 32
 
-# Kernel launches made by ``materialize`` (one per call on a CUDA tensor,
-# the count and scatter passes together).
+# Calls of ``materialize`` that launched the kernel (one per call on a
+# CUDA tensor, whatever the layout and the number of attributes).
 launches = 0
 
 
@@ -81,28 +81,65 @@ def materialize_torch(attr_planes: Sequence[torch.Tensor],
 # --------------------------------------------------------------------------
 # The CUDA kernel
 # --------------------------------------------------------------------------
+# Attributes one launch takes (``kMaxAttrs`` in the source); more are
+# materialized in further launches of the same call.
+MAX_ATTRS = 32
+# A warp whose densest mask word selects more lanes than this decodes its
+# words with the register bit transpose, else lane by lane (``kSparseMax``
+# in the source): the best of 0-32 at path b's 16 shapes on an H100
+# (PERF.md).
+SPARSE_MAX = 8
+# Per device: the tiles of the look-back kernel it holds at once, and per
+# device and stream, that kernel's state (zeros between launches; the
+# kernel returns it to zeros itself, so calls share it with no host
+# bookkeeping).
+_resident: Dict[torch.device, int] = {}
+_states: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.materialize_n_blocks.argtypes = [ll]
-    lib.materialize_n_blocks.restype = i
-    lib.materialize_count_launch.argtypes = [p, ll, p, p]
-    lib.materialize_count_launch.restype = i
-    lib.materialize_scatter_launch.argtypes = [
-        ctypes.POINTER(p), ctypes.POINTER(i), i, p, ll, p, p, ll, p]
-    lib.materialize_scatter_launch.restype = i
+    lib.materialize_n_tiles.argtypes = [ll]
+    lib.materialize_n_tiles.restype = i
+    for name in ("materialize_max_attrs", "materialize_sparse_max",
+                 "materialize_resident_tiles"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.materialize_lookback_launch.argtypes = [
+        ctypes.POINTER(p), ctypes.POINTER(i), i, p, ll, p, ll, p, p, p]
+    lib.materialize_lookback_launch.restype = i
+    lib.materialize_two_pass_launch.argtypes = [
+        ctypes.POINTER(p), ctypes.POINTER(i), i, p, ll, p, ll, p, p, p]
+    lib.materialize_two_pass_launch.restype = i
+    if lib.materialize_max_attrs() != MAX_ATTRS:
+        raise RuntimeError("materialize.cu's kMaxAttrs != MAX_ATTRS")
+    if lib.materialize_sparse_max() != SPARSE_MAX:
+        raise RuntimeError("materialize.cu's kSparseMax != SPARSE_MAX")
 
 
 def _library() -> ctypes.CDLL:
     return build.library("materialize", _bind)
 
 
+def _look_back_state(dev: torch.device, stream: int) -> torch.Tensor:
+    """The look-back kernel's state on ``stream``: one zeroed int64 word
+    for its counters and one per tile the device holds at once."""
+    st = _states.get((dev, stream))
+    if st is None:
+        st = _states[(dev, stream)] = torch.zeros(
+            1 + _resident[dev], dtype=torch.int64, device=dev)
+    return st
+
+
 def materialize_kernel(attr_planes: Sequence[torch.Tensor],
                        mask: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`materialize_torch`'s contract, computed on the current CUDA
-    stream by ``csrc/materialize.cu``: a count pass, ``torch.cumsum`` over
-    its per-block counts, a decode-and-scatter pass. The count stays on the
-    device; the values past it are undefined."""
+    stream by ``csrc/materialize.cu``: one launch per ``MAX_ATTRS``
+    attributes, the single-pass look-back scan, where all the call's tiles
+    fit on the card at once; else a count launch and a decode launch,
+    which measured faster there. The count stays on the device; the values
+    past it are undefined."""
     lib = _library()
     dev = mask.device
     if dev.type != "cuda" or mask.dim() != 1:
@@ -115,31 +152,43 @@ def materialize_kernel(attr_planes: Sequence[torch.Tensor],
             raise ValueError(f"attr_planes[{k}] must be 2-D, got "
                              f"{tuple(p.shape)}")
         check_int32(p, f"attr_planes[{k}]", (p.shape[0], w), dev)
+    if w * WORD_BITS >= 1 << 31:
+        raise ValueError(f"{w} words hold more records than an int32 "
+                         "count")
     n_attrs = len(attr_planes)
     vals = torch.empty((n_attrs, w * WORD_BITS), dtype=torch.int32,
                        device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
     if w == 0:
-        return vals, torch.zeros(1, dtype=torch.int32, device=dev)
-    counts = torch.empty(lib.materialize_n_blocks(w), dtype=torch.int32,
-                         device=dev)
+        return vals, count.zero_()
+    err = 0
     with torch.cuda.device(dev):
+        if dev not in _resident:
+            _resident[dev] = lib.materialize_resident_tiles()
+        n_tiles = lib.materialize_n_tiles(w)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.materialize_count_launch(mask.data_ptr(), w,
-                                           counts.data_ptr(), stream)
-        cum = torch.cumsum(counts, 0, dtype=torch.int32)
-        if not err and n_attrs:
-            ptrs = (ctypes.c_void_p * n_attrs)(
-                *(p.data_ptr() for p in attr_planes))
-            bits = (ctypes.c_int * n_attrs)(
-                *(p.shape[0] for p in attr_planes))
-            err = lib.materialize_scatter_launch(
-                ptrs, bits, n_attrs, mask.data_ptr(), w, cum.data_ptr(),
-                vals.data_ptr(), w * WORD_BITS, stream)
+        if n_tiles <= _resident[dev]:
+            launch = lib.materialize_lookback_launch
+            scratch = _look_back_state(dev, stream)
+        else:
+            launch = lib.materialize_two_pass_launch
+            scratch = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        for a0 in range(0, max(n_attrs, 1), MAX_ATTRS):
+            chunk = attr_planes[a0:a0 + MAX_ATTRS]
+            ptrs = (ctypes.c_void_p * len(chunk))(
+                *(p.data_ptr() for p in chunk))
+            bits = (ctypes.c_int * len(chunk))(*(p.shape[0] for p in chunk))
+            err = launch(ptrs, bits, len(chunk), mask.data_ptr(), w,
+                         vals.data_ptr() + a0 * w * WORD_BITS * 4,
+                         w * WORD_BITS, count.data_ptr(), scratch.data_ptr(),
+                         stream)
+            if err:
+                break
     if err != 0:
         raise RuntimeError(f"materialize launch failed: CUDA error {err}")
     global launches
     launches += 1
-    return vals, cum[-1:]
+    return vals, count
 
 
 def materialize(planes, mask: torch.Tensor

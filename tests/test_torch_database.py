@@ -140,3 +140,59 @@ def test_unported_scopes_raise(port_db):
         assert fused.materialized_rows == oracle.materialized_rows
     with pytest.raises(NotImplementedError, match="A7"):
         port_db.execute([tq.get_query("Q6"), tq.get_query("Q1")])
+
+
+# --------------------------------------------------------------------------
+# The selectivity model's fallback
+# --------------------------------------------------------------------------
+def _raise_on(monkeypatch, queries_mod, bad):
+    """Patch ``queries_mod.eval_pred`` to raise for the conjunct ``bad``
+    (by identity) and evaluate everything else as before."""
+    real = queries_mod.eval_pred
+
+    def eval_pred(cols, p):
+        if p is bad:
+            raise TypeError("conjunct not evaluable on the host")
+        return real(cols, p)
+    monkeypatch.setattr(queries_mod, "eval_pred", eval_pred)
+
+
+def test_conjunct_selectivity_falls_back_like_reference(tables,
+                                                        monkeypatch):
+    """A conjunct whose host ``eval_pred`` raises counts as selectivity
+    1.0 in both packages; the other conjuncts keep their fractions."""
+    pytest.importorskip("jax")
+    from repro.db import database as rdb
+    from repro.db import queries as rq
+    cols = tables["lineitem"]
+    n = len(next(iter(cols.values())))
+    port_pred = tq.get_query("Q6").filter_only().filters["lineitem"]
+    ref_pred = rq.get_query("Q6").filter_only().filters["lineitem"]
+    assert len(port_pred.ps) == 4
+    clean = tdb._conjunct_selectivities(cols, port_pred)
+    assert clean == rdb._conjunct_selectivities(cols, ref_pred, n)
+    _raise_on(monkeypatch, tq, port_pred.ps[2])
+    _raise_on(monkeypatch, rq, ref_pred.ps[2])
+    got = tdb._conjunct_selectivities(cols, port_pred)
+    want = rdb._conjunct_selectivities(cols, ref_pred, n)
+    assert got == want
+    assert got[2] == 1.0 and clean[2] < 1.0
+    assert got[:2] + got[3:] == clean[:2] + clean[3:]
+
+
+def test_execute_survives_a_conjunct_the_host_cannot_evaluate(
+        port_db, monkeypatch):
+    """FUSED ``execute`` of Q6 returns the same masks and aggregates with
+    one conjunct's host evaluation raising; only that conjunct's modelled
+    selectivity becomes 1.0."""
+    spec = tq.get_query("Q6").filter_only()
+    clean = port_db.execute(spec)
+    _raise_on(monkeypatch, tq, spec.filters["lineitem"].ps[2])
+    got = port_db.execute(spec)
+    np.testing.assert_array_equal(got.relations["lineitem"].mask,
+                                  clean.relations["lineitem"].mask)
+    assert got.aggregates == clean.aggregates
+    sels = got.relations["lineitem"].filter_attr_sels
+    want = list(clean.relations["lineitem"].filter_attr_sels)
+    want[2] = 1.0
+    assert sels == want

@@ -274,3 +274,34 @@ def test_kernels_match_plain_on_card():
                 for g, w in zip(got, want):
                     assert torch.equal(g.cpu(), w)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 8, 9, 16, 17, 32, 33, 64, 1024])
+def test_eq_imm_matches_plain_on_card_any_width_and_word_count(bits):
+    """eq_imm at every width bucket's edges (8, 16, 32; wider stacks read
+    16 planes at a time, up to 1,024) and at W % 4 = 0, 1, 2, 3, in small
+    stacks and in stacks of lineitem's word count at SF 1 (more words than
+    one wave of blocks), with all-ones words, bit 31 and immediates with
+    bits at or above the width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    rng = np.random.default_rng(bits)
+    base = 4_003 if bits > 64 else 100_003
+    for n in (base, base - 1, base - 2, base - 3, 188_416, 188_415):
+        if bits > 64 and n > base:
+            continue
+        vals = rng.integers(0, 1 << min(bits, 63), n * 32, dtype=np.uint64)
+        raw = rng.integers(0, 1 << 32, (bits, n), dtype=np.uint64) \
+            .astype(np.uint32)
+        raw[:, 0] = 0xFFFFFFFF
+        raw[:, 1] |= np.uint32(1 << 31)
+        x = _i32(raw)
+        xc = x.cuda()
+        top = (1 << bits) - 1
+        for imm in (0, top, top ^ 0x55, int(vals[0]), (1 << 31) | 5,
+                    (1 << bits) | (1 << (bits + 9)) | 6):
+            assert torch.equal(kbf.eq_imm(xc, imm).cpu(),
+                               kbf.eq_imm_torch(x, imm)), (n, imm)
+    torch.cuda.synchronize()

@@ -16,6 +16,7 @@
 * On a card, the kernel equals the plain version (``cuda`` marker).
 """
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ from repro_torch.db import tpch as ttpch
 from repro_torch.kernels import program as kp
 
 SF, SEED = 0.002, 123
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -446,6 +448,125 @@ def test_counters_match_reference():
             [(j.attr, j.masks, j.width, j.exec_at, j.col_start)
              for j in rcp.plan.sum_jobs]
         assert cp.arith.batches == rcp.arith.batches
+
+
+# --------------------------------------------------------------------------
+# The tape cache and the capacity limits
+# --------------------------------------------------------------------------
+def _lru_compiler(C, prog_mod, rel):
+    """``compile_for(imm)``: compile ``a < imm`` on ``rel`` with the
+    compiler module ``C`` and the program module ``prog_mod``; returns the
+    compiled program and its mask register."""
+    def compile_for(imm):
+        c = C.Compiler(rel)
+        m = c.compile_filter(C.Cmp("lt", C.Col("a"), C.Lit(imm)),
+                             with_transform=False)
+        return prog_mod.compile_program(rel, c.program,
+                                        mask_outputs=(m,)), m
+    return compile_for
+
+
+def test_fn_cache_lru_eviction(monkeypatch):
+    """The reference's test, on the port's tape cache: filling it past
+    capacity evicts the least-recently-used tape, a hit rebuilds nothing,
+    an evicted signature is rebuilt and still exact, and shrinking the
+    capacity evicts at once."""
+    from repro_torch.db import compiler as tc
+    small = tprog.LruFnCache(capacity=2)
+    monkeypatch.setattr(tprog, "_FN_CACHE", small)
+    rng = np.random.default_rng(3)
+    cols = {"a": rng.integers(0, 1 << 8, 2000)}
+    rel = te.PimRelation.from_columns("lru_t", cols, device="cpu")
+    compile_for = _lru_compiler(tc, tprog, rel)
+
+    compile_for(10)
+    compile_for(20)
+    assert len(small) == 2 and small.evictions == 0
+    compile_for(30)                      # pushes imm=10 out
+    assert len(small) == 2 and small.evictions == 1
+    misses = small.misses
+    compile_for(30)                      # LRU hit: no rebuild
+    assert small.misses == misses and small.hits >= 1
+    cp1, m1 = compile_for(10)            # evicted sig: rebuilt, still exact
+    assert small.evictions >= 2
+    res = tprog.run_program(cp1, rel)
+    np.testing.assert_array_equal(res.mask(m1), cols["a"] < 10)
+    small.set_capacity(1)                # shrinking evicts immediately
+    assert len(small) == 1
+    with pytest.raises(ValueError):
+        small.set_capacity(0)
+    small.clear()
+    assert len(small) == 0 and tprog.program_cache_stats()["size"] == 0
+
+
+def test_program_cache_stats_match_reference(monkeypatch):
+    """The same compiles through both packages' caches (capacity 2 via
+    ``set_program_cache_capacity``) give the same ``program_cache_stats``:
+    the same keys, hits, misses, evictions, size and capacity."""
+    pytest.importorskip("jax")
+    from repro.core import engine as reng
+    from repro.core import program as rprog
+    from repro.db import compiler as rc
+    from repro_torch.db import compiler as tc
+    rng = np.random.default_rng(4)
+    cols = {"a": rng.integers(0, 1 << 8, 3000)}
+    stats = []
+    for prog_mod, C, rel in (
+            (tprog, tc, te.PimRelation.from_columns("lru_s", cols,
+                                                    device="cpu")),
+            (rprog, rc, reng.PimRelation.from_columns("lru_s", cols))):
+        monkeypatch.setattr(prog_mod, "_FN_CACHE", prog_mod.LruFnCache(8))
+        prog_mod.set_program_cache_capacity(2)
+        compile_for = _lru_compiler(C, prog_mod, rel)
+        for imm in (10, 20, 10, 30, 20, 20, 10):
+            compile_for(imm)
+        stats.append(prog_mod.program_cache_stats())
+    assert stats[0] == stats[1]
+    assert stats[0] == {"hits": 2, "misses": 5, "evictions": 3, "size": 2,
+                        "capacity": 2}
+
+
+def test_cache_capacity_is_read_from_the_environment():
+    """The reference's setting: ``REPRO_PROGRAM_CACHE_CAPACITY`` sizes the
+    module's cache when it is imported (default 128, as here, where the
+    test environment leaves it unset)."""
+    import os
+    import subprocess
+    import sys
+    if "REPRO_PROGRAM_CACHE_CAPACITY" not in os.environ:
+        assert tprog._FN_CACHE.capacity == 128
+    code = ("from repro_torch.core import program as p; "
+            "print(p.program_cache_stats()['capacity'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_PROGRAM_CACHE_CAPACITY="7")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "7"
+
+
+def test_pack_entries_limit_message():
+    """A field value of ``1 << bits`` is refused with the field's name,
+    its range and the values found."""
+    for name, _, bits in kp._FIELDS:
+        ops = np.zeros((3, 5), np.int64)
+        ops[1, [n for n, _, _ in kp._FIELDS].index(name)] = 1 << bits
+        with pytest.raises(ValueError, match=(
+                rf"^tape field {name} out of range \[0, {1 << bits}\): "
+                rf"0\.\.{1 << bits}$")):
+            kp.pack_entries(ops)
+
+
+def test_plan_launch_limit_message():
+    """A tape whose planes do not fit one block's shared memory even at
+    one warp and one word per thread is refused, naming the planes, the
+    accumulators and the 227 KB limit; one plane fewer than that fits."""
+    from repro_torch.kernels import common as kc
+    fit = (kc.SMEM_BYTES // 4 - 5) // 32       # planes of a 32-word tile
+    assert kc.plan_launch(fit, 5).tile == 32
+    with pytest.raises(ValueError, match=(
+            rf"^{fit + 1} planes x 32 words \+ 5 accumulators exceed "
+            rf"{kc.SMEM_BYTES} bytes of shared memory$")):
+        kc.plan_launch(fit + 1, 5)
 
 
 # --------------------------------------------------------------------------
