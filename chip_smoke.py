@@ -27,9 +27,18 @@ Phases (any failure exits non-zero before the last line):
    eager engine hands them over the 34 programs and on random stacks of
    widths 1, 7, 8, 9, 16, 17, 31, 32, 33, 64 and the widest operand
    (immediates 0, 2^n - 1, bit 31 set, bits above the width), ``eq_imm``
-   also at W % 4 = 0, 1, 2, 3 and at width 1,024; ``filter_sum`` at
-   (nf, na) (9, 0), (17, 12), (24, 20), (32, 64). The word counts there
-   are not a multiple of any kernel's block.
+   also at W % 4 = 0, 1, 2, 3 (each on a copy 4- but not 8-byte aligned
+   too) and at width 1,024, ``cmp_imm`` so at widths 1, 4, 8, 9, 16, 17,
+   21, 32, 33, 64 and 1,024 (immediates 0, all-ones, the top bit alone,
+   negative, too wide); ``filter_sum`` at (nf, na) (9, 0), (5, 1),
+   (17, 12), (24, 20), (12, 24), (32, 33), (32, 64), (33, 64) and
+   (17, 1,024) over word counts 1, 255, 256, 257, 100,003, 188,416 and
+   1,100,000 (beyond one wave of its persistent grid), with an aligned
+   and a misaligned valid plane, from
+   four host threads on one stream and on two streams; one warm
+   ``filter_sum`` call must run exactly one CUDA kernel (torch.profiler's
+   device events). The word counts there are not a multiple of any
+   kernel's block.
 4. Main paths, TPC-H SF 1, each driven with the launch counts set to 0
    just before it and read just after:
    a. ``PimDatabase(tables).execute(spec)`` for the 19 ``filter_only()``
@@ -785,7 +794,18 @@ IMM_KINDS = ("EqualImm", "NotEqualImm", "LessThanImm", "GreaterThanImm")
 FILTER_WIDTHS = (1, 7, 8, 9, 16, 17, 31, 32, 33, 64)
 # eq_imm alone: stacks as wide as the kernels take, at W % 4 = 0..3.
 EQ_WIDE = (1024,)
-FILTER_SUM_SHAPES = ((9, 0), (17, 12), (24, 20), (32, 64))
+# cmp_imm at W % 4 = 0..3, aligned and not: each instance's edges (8, 16,
+# 32 planes; wider 16 at a time), path d's widths (4-21) and the widest.
+CMP_WIDTHS = (1, 4, 8, 9, 16, 17, 21, 32, 33, 64, 1024)
+# filter_sum: (nf, na) reaching both filter chunk sizes (8, 16; wider
+# stacks in several chunks) and na 0-1,024, at word counts of one word, a
+# block's edges, a multiple of no block, lineitem at SF 1 and beyond one
+# wave of the persistent grid (132 SMs x 8 blocks x 256 threads x 2 words
+# = 540,672); a case with na x W above 2e8 (800 MB of aggregate planes)
+# takes 188,416 words instead.
+FILTER_SUM_SHAPES = ((9, 0), (5, 1), (17, 12), (24, 20), (12, 24),
+                     (32, 33), (32, 64), (33, 64), (17, 1024))
+FILTER_SUM_WORDS = (1, 255, 256, 257, 100_003, 188_416, 1_100_000)
 
 
 def reset_launches() -> None:
@@ -852,24 +872,41 @@ def check_filter_kernels(what, planes, imms) -> int:
     return worst
 
 
-def check_eq_imm_ragged(what, planes, imms) -> int:
-    """eq_imm vs eq_imm_torch on the card for the stack cut to each word
-    count W - k, k = 0..3, so W % 4 takes every value (two words a thread
-    where W is even, one else). Returns the max abs diff
-    (0, or the run fails)."""
+def check_ragged(name, what, planes, imms) -> int:
+    """``name`` (``eq_imm`` or ``cmp_imm``) vs its plain version on the
+    card for the stack cut to each word count W - k, k = 0..3, so W % 4
+    takes every value (two words a thread where W is even, one else), each
+    also from a copy whose data pointer is 4- but not 8-byte aligned (one
+    word a thread). Returns the max abs diff (0, or the run fails)."""
     from repro_torch.kernels import bitwise_filter as kbf
+    kernel, plain = getattr(kbf, name), getattr(kbf, f"{name}_torch")
     worst = 0
     for k in range(4):
         x = planes[:, :planes.shape[1] - k].contiguous().cuda()
         for imm in imms:
-            diff = max_abs_diff([kbf.eq_imm(x, imm)],
-                                [kbf.eq_imm_torch(x, imm)])
-            if diff:
-                fail(f"eq_imm != plain on {what} at W={x.shape[1]}, imm "
-                     f"{imm:#x}: max abs diff {diff}")
-            worst = max(worst, diff)
+            want = plain(x, imm)
+            for xc in (x, misaligned(x)):
+                got = kernel(xc, imm)
+                diff = (max_abs_diff([got], [want]) if name == "eq_imm"
+                        else max_abs_diff(got, want))
+                if diff:
+                    fail(f"{name} != plain on {what} at W={x.shape[1]} "
+                         f"(data pointer % 8 = {xc.data_ptr() % 8}), imm "
+                         f"{imm:#x}: max abs diff {diff}")
+                worst = max(worst, diff)
     torch.cuda.synchronize()
     return worst
+
+
+def misaligned(x):
+    """A contiguous CUDA copy of ``x`` whose data pointer is 4-byte but not
+    8-byte aligned (one word into a larger buffer)."""
+    buf = torch.empty(x.numel() + 1, dtype=torch.int32, device="cuda")
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    if view.data_ptr() % 8 != 4 or not view.is_contiguous():
+        fail("could not make a 4- but not 8-byte aligned view")
+    return view
 
 
 def check_filter_sum(what, fplanes, aplanes, valid, lo, hi) -> int:
@@ -981,8 +1018,11 @@ def phase_filter_kernels_vs_plain() -> dict:
     """eq_imm, cmp_imm, range_mask and filter_sum vs plain: on every
     immediate predicate operand of the eager engine's 34 programs at SF
     0.01, and on random stacks of widths 1-64 and the widest operand the
-    engine hands them, at a word count that is a multiple of no block.
-    Returns the worst diffs {"filter": ..., "filter_sum": ...}."""
+    engine hands them, at a word count that is a multiple of no block;
+    eq_imm and cmp_imm also at W % 4 = 0..3, aligned and not, to width
+    1,024; filter_sum over FILTER_SUM_SHAPES x FILTER_SUM_WORDS, from
+    threads and streams, and as one kernel a call. Returns the worst
+    diffs {"filter": ..., "filter_sum": ...}."""
     from repro_torch.db import database as D
     from repro_torch.db import queries as Q
     from repro_torch.db import tpch
@@ -1003,34 +1043,115 @@ def phase_filter_kernels_vs_plain() -> dict:
                 (1 << width) | (1 << (width + 9)) | 6]
         worst = max(worst, check_filter_kernels(
             f"random width {width}", planes.cuda(), imms))
-        worst = max(worst, check_eq_imm_ragged(f"random width {width}",
-                                               planes, imms))
+        worst = max(worst, check_ragged("eq_imm", f"random width {width}",
+                                        planes, imms))
     for width in EQ_WIDE:
         planes = torch.randint(-(1 << 31), 1 << 31, (width, 20_001),
                                dtype=torch.int32, generator=g)
         top = (1 << width) - 1
-        worst = max(worst, check_eq_imm_ragged(
-            f"random width {width}", planes, [0, top, top ^ 0x55,
-                                              (1 << width) | 6]))
+        worst = max(worst, check_ragged(
+            "eq_imm", f"random width {width}", planes,
+            [0, top, top ^ 0x55, (1 << width) | 6]))
+    for width in CMP_WIDTHS:
+        planes = torch.randint(-(1 << 31), 1 << 31,
+                               (width, 20_001 if width > 64 else n_words),
+                               dtype=torch.int32, generator=g)
+        planes[:, 0] = -1
+        planes[:, 1] |= -(1 << 31)
+        top = (1 << width) - 1
+        worst = max(worst, check_ragged(
+            "cmp_imm", f"random width {width}", planes,
+            [0, top, 1 << (width - 1), top ^ 0x55, -7,
+             (1 << width) | (1 << (width + 9)) | 6]))
     sum_worst = 0
+    gc = torch.Generator(device="cuda").manual_seed(SEED)
     for nf, na in FILTER_SUM_SHAPES:
-        fp = torch.randint(-(1 << 31), 1 << 31, (nf, n_words),
-                           dtype=torch.int32, generator=g)
-        ap = torch.randint(-(1 << 31), 1 << 31, (na, n_words),
-                           dtype=torch.int32, generator=g)
-        valid = torch.randint(-(1 << 31), 1 << 31, (n_words,),
-                              dtype=torch.int32, generator=g)
-        for lo, hi in ((3, (1 << nf) - 9), (0, 1 << 31),
-                       ((1 << nf) | 7, (1 << nf) - 1)):
-            sum_worst = max(sum_worst, check_filter_sum(
-                f"random ({nf}, {na}) [{lo:#x}, {hi:#x})", fp.cuda(),
-                ap.cuda(), valid.cuda(), lo, hi))
+        for w in FILTER_SUM_WORDS:
+            w = w if na * w <= 200_000_000 else 188_416
+            fp, ap, valid = random_words(gc, (nf, w), (na, w), (w,))
+            for v in (valid, misaligned(valid)):
+                for lo, hi in ((3, (1 << nf) - 9), (0, 1 << 31), (9, 3),
+                               ((1 << nf) | 7, (1 << nf) - 1)):
+                    sum_worst = max(sum_worst, check_filter_sum(
+                        f"random ({nf}, {na}) W={w} [{lo:#x}, {hi:#x}) "
+                        f"(valid pointer % 8 = {v.data_ptr() % 8})",
+                        fp, ap, v, lo, hi))
+    fp, ap, valid = random_words(gc, (12, 188_416), (24, 188_416),
+                                 (188_416,))
+    check_filter_sum_threads(fp, ap, valid, 5, 3000)
+    kernels = filter_sum_kernels(fp, ap, valid, 5, 3000)
     print(f"phase 3 ok: eq_imm/cmp_imm/range_mask == plain on {n_ops} "
           f"eager operands at SF {SMOKE_SF} (widest {widest} bits) and "
-          f"widths {sorted(set(FILTER_WIDTHS) | {widest})} (eq_imm also at "
-          f"W % 4 = 0..3 and widths {EQ_WIDE}); filter_sum == "
-          f"plain at (nf, na) {list(FILTER_SUM_SHAPES)}", flush=True)
+          f"widths {sorted(set(FILTER_WIDTHS) | {widest})}; eq_imm at W % 4 "
+          f"= 0..3, aligned and not, at those widths and {EQ_WIDE}, cmp_imm "
+          f"at widths {CMP_WIDTHS}; filter_sum == plain at (nf, na) "
+          f"{list(FILTER_SUM_SHAPES)} x W {list(FILTER_SUM_WORDS)}, "
+          f"aligned and not, from 4 threads on "
+          f"one stream and on 2 streams; one warm filter_sum call runs "
+          f"{len(kernels)} CUDA kernel: {kernels}", flush=True)
     return {"filter": worst, "filter_sum": sum_worst}
+
+
+def random_words(gen, *shapes):
+    """Random int32 words on the card, one tensor per shape."""
+    return [torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                          device="cuda", generator=gen) for shape in shapes]
+
+
+def check_filter_sum_threads(fp, ap, valid, lo, hi, n_threads=4,
+                             calls=25) -> None:
+    """filter_sum from ``n_threads`` host threads at once on the default
+    stream, ``calls`` each, then 20 calls alternating between two streams:
+    every result equals plain (the kernel's state is per stream, and each
+    launch returns it to zeros)."""
+    import threading
+    from repro_torch.kernels import filter_aggregate as kfa
+    want = kfa.filter_sum_torch(fp, ap, valid, lo, hi)
+    results, errors = [], []
+
+    def run():
+        try:
+            for _ in range(calls):
+                results.append(kfa.filter_sum(fp, ap, valid, lo, hi))
+        except Exception as e:          # reported below, fails the run
+            errors.append(e)
+    threads = [threading.Thread(target=run) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for k in range(20):
+        with torch.cuda.stream(streams[k % 2]):
+            results.append(kfa.filter_sum(fp, ap, valid, lo, hi))
+    torch.cuda.synchronize()
+    if errors:
+        fail(f"filter_sum from {n_threads} threads raised: {errors[0]}")
+    for got in results:
+        if max_abs_diff([g.reshape(-1) for g in got],
+                        [w.reshape(-1) for w in want]):
+            fail(f"filter_sum from {n_threads} threads on one stream, or on "
+                 "two streams, != plain")
+
+
+def filter_sum_kernels(fp, ap, valid, lo, hi) -> list:
+    """The CUDA kernels one warm filter_sum call runs, by name, from
+    torch.profiler's device events; the run fails unless there is exactly
+    one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import filter_aggregate as kfa
+    kfa.filter_sum(fp, ap, valid, lo, hi)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kfa.filter_sum(fp, ap, valid, lo, hi)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    if len(names) != 1:
+        fail(f"one filter_sum call ran {len(names)} CUDA kernels: {names}")
+    return names
 
 
 def phase_eager_path(db, fused_results, peaks, flush, floor):
@@ -1119,14 +1240,19 @@ def q6_shipdate_range(db) -> tuple[int, int]:
 
 
 def filter_timing(name, fn, plain, nbytes, logic, popc, peaks, flush):
-    """Card time (queued behind a spin, cold L2), one call's time, the
-    plain version's time and the bound of one filter kernel call."""
+    """Card time (queued behind a spin, cold L2: after the method's write
+    flush, and after a read flush, which leaves no dirty lines for the
+    kernel's reads to evict), one call's time, the plain version's time
+    and the bound of one filter kernel call."""
     bound, by = bound_s(nbytes, logic, popc, peaks)
     t = {"ms": cuda_ms(fn, 5, flush, ahead=True),
+         "read_flush_ms": cuda_ms(fn, 5, flush, ahead=True, read_flush=True),
          "call_ms": cuda_ms(fn, 5, flush),
          "plain_ms": cuda_ms(plain, 3),
          "bound_ms": bound * 1e3, "bound_by": by}
-    print(f"{name}: kernel {t['ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
+    print(f"{name}: kernel {t['ms']:.4f} ms (after a read flush, no dirty "
+          f"lines in L2: {t['read_flush_ms']:.4f} ms), call "
+          f"{t['call_ms']:.4f} ms, "
           f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
           f"({by}; {nbytes} bytes, {logic} logic ops, {popc} popcounts)",
           flush=True)

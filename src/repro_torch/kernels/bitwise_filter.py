@@ -17,6 +17,15 @@ symbolic planes run them too). ``eq_imm``, ``cmp_imm`` and ``range_mask``
 launch ``csrc/bitwise_filter.cu`` on a CUDA tensor and run the plain
 version on a CPU tensor. The same library holds ``filter_aggregate``'s
 kernel; :func:`bind` sets up all four launchers.
+
+Each kernel is bound by bytes (every plane word read once, every mask
+word written once). ``eq_imm`` and ``cmp_imm`` put all of a thread's
+plane loads in flight before folding (stacks of up to 32 planes at once,
+wider ones 16 at a time, ``cmp_imm``'s from the top plane down), fold the
+immediate without a branch, and take two words a thread where W is even
+and the pointers 8-byte aligned, in one wave of the card's resident
+blocks; ``range_mask`` keeps the first port's one word a thread and
+runtime plane loop. Their times on an H100: PERF.md §6.
 """
 from __future__ import annotations
 
@@ -30,9 +39,6 @@ from .common import check_int32
 
 # The widest plane stack the kernels take (``kMaxBits`` in the source).
 MAX_BITS = 1024
-# Threads per block (``kThreads`` in the source): ``filter_sum`` writes one
-# row of partials per this many words.
-THREADS = 256
 
 # Kernel launches made by ``eq_imm``, ``cmp_imm`` and ``range_mask``.
 eq_imm_launches = 0
@@ -85,7 +91,7 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.eq_imm_launch.argtypes = [p, i, ll, imm, p, p]
     lib.cmp_imm_launch.argtypes = [p, i, ll, imm, p, p, p]
     lib.range_mask_launch.argtypes = [p, i, ll, imm, imm, p, p]
-    lib.filter_sum_launch.argtypes = [p, i, p, i, p, ll, imm, imm, p, ll, p]
+    lib.filter_sum_launch.argtypes = [p, i, p, i, p, ll, imm, imm, p, p, p]
     for fn in (lib.eq_imm_launch, lib.cmp_imm_launch,
                lib.range_mask_launch, lib.filter_sum_launch):
         fn.restype = i

@@ -9,6 +9,14 @@ the sweeps of ``tests/test_kernels.py`` (n in {100, 4096, 33000}, widths
 bits at or above the width (ignored, as the Pallas kernels ignore them).
 The wrappers never fall back: a CUDA tensor without a kernel raises. On a
 card the kernels equal the plain versions (``cuda`` marker).
+
+Numpy models of ``csrc/bitwise_filter.cu``: ``cmp_imm``'s branch-free,
+chunked MSB-first chain equals the Pallas ``cmp_imm`` in interpret mode
+(every immediate at widths 1-8, random, negative and too-wide immediates
+across chunk boundaries); ``filter_sum``'s persistent blocks, int32 block
+counts and self-zeroing int64 state equal the reference's popcounts and
+leave the state zero. ``filter_sum`` refuses, before any build, a stack
+whose int32 block counts could reach 2**31.
 """
 import numpy as np
 import pytest
@@ -244,6 +252,202 @@ def test_empty_stack_launches_and_counts_nothing(monkeypatch, tmp_path,
     assert kbuild._libs == {}
 
 
+# --------------------------------------------------------------------------
+# Numpy models of the CUDA kernels
+# --------------------------------------------------------------------------
+def _chunk(n_bits):
+    """Planes a kernel instance loads at once (``BY_WIDTH``): all of a
+    stack up to 32, wider stacks 16 at a time."""
+    return 8 if n_bits <= 8 else 16 if n_bits <= 16 or n_bits > 32 else 32
+
+
+def _imm_bits(imm, n_bits):
+    """``load_imm``: the launcher's 64-bit immediate words, bits at or
+    above ``n_bits`` zero."""
+    words = [int(x) for x in kbf.imm_words(imm, n_bits)]
+    words += [0] * (kbf.MAX_BITS // 64 - len(words))
+    if n_bits % 64:
+        words[n_bits // 64] &= (1 << (n_bits % 64)) - 1
+    return words
+
+
+def _cmp_chain_model(planes, imm, nb=None):
+    """``cmp_chain``: chunks of ``nb`` (``cmp_imm``: ``_chunk(n_bits)``)
+    planes from the top chunk down, the top one padded with zero planes past ``n_bits``; each
+    chunk is loaded whole, then folded top plane first with the
+    branch-free step m = 0 - bit, lt |= eq & ~v & m, eq &= ~(v ^ m). The
+    chunk's immediate bits are ``imm_chunk``: one 64-bit word shifted."""
+    n_bits, w = planes.shape
+    nb = nb or _chunk(n_bits)
+    words = _imm_bits(imm, n_bits)
+    zero = np.zeros(w, np.uint32)
+    lt, eq = np.zeros(w, np.uint32), np.full(w, 0xFFFFFFFF, np.uint32)
+    for b0 in range((n_bits - 1) // nb * nb, -1, -nb):
+        v = [planes[b0 + i] if b0 + i < n_bits else zero for i in range(nb)]
+        bits = (words[b0 // 64] >> (b0 % 64)) & 0xFFFFFFFF
+        for i in range(nb - 1, -1, -1):
+            m = np.uint32(-((bits >> i) & 1) & 0xFFFFFFFF)
+            lt |= eq & ~v[i] & m
+            eq &= ~(v[i] ^ m)
+    return lt, eq
+
+
+def _raw(rng, bits, w):
+    """Random words with all-ones, bit-31 and zero words (as many of the
+    three as ``w`` holds)."""
+    raw = rng.integers(0, 1 << 32, (bits, w), dtype=np.uint64) \
+        .astype(np.uint32)
+    raw[:, :1] = 0xFFFFFFFF
+    raw[:, 1:2] |= np.uint32(1 << 31)
+    raw[:, 2:3] = 0
+    return raw
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_cmp_chain_model_matches_pallas_every_immediate(bits):
+    """Every immediate of a 1-8 bit stack (1,024 words: every value
+    occurs), against the Pallas kernel in interpret mode and the plain
+    version."""
+    jnp, rbf, _ = _jax()
+    raw = _raw(np.random.default_rng(bits), bits, 1024)
+    x = jnp.asarray(raw)
+    for imm in range(1 << bits):
+        got = _cmp_chain_model(raw, imm)
+        want = rbf.cmp_imm(x, imm, interpret=True)
+        for g, w_, p in zip(got, want, kbf.cmp_imm_torch(_i32(raw), imm)):
+            np.testing.assert_array_equal(g, np.asarray(w_))
+            np.testing.assert_array_equal(g, _u32(p))
+
+
+@pytest.mark.parametrize("bits", [17, 21, 33, 64])
+def test_cmp_chain_model_matches_pallas_across_chunks(bits):
+    """Stacks whose chain crosses chunk boundaries (17 and 21 in one
+    padded 32-plane chunk; 33 and 64 in 16-plane chunks): random
+    immediates, one with only bit ``bits - 1``, negative ones and ones at
+    or above 2**bits (their bits at or above the width are ignored)."""
+    jnp, rbf, _ = _jax()
+    rng = np.random.default_rng(bits)
+    raw = _raw(rng, bits, 1024)
+    x = jnp.asarray(raw)
+    rand = [int(rng.integers(0, 1 << bits, dtype=np.uint64))
+            for _ in range(3)]
+    imms = rand + [1 << (bits - 1), (1 << bits) - 1, -1, -rand[0],
+                   rand[1] | (1 << bits) | (1 << (bits + 5))]
+    for imm in imms:
+        got = _cmp_chain_model(raw, imm)
+        want = rbf.cmp_imm(x, imm, interpret=True)
+        for g, w_, p in zip(got, want, kbf.cmp_imm_torch(_i32(raw), imm)):
+            np.testing.assert_array_equal(g, np.asarray(w_))
+            np.testing.assert_array_equal(g, _u32(p))
+
+
+def _filter_sum_model(fp, ap, valid, lo, hi, grid, k, state):
+    """``filter_sum_kernel`` over ``grid`` persistent blocks of 256
+    threads, ``k`` words a thread, the filter planes in chunks of 8 (a
+    stack of up to 8) or 16: every lane takes every grid-stride
+    step (a lane past the end reads the last group and selects nothing);
+    each block counts in int32 and adds its counts into ``state`` (a done
+    counter, then one int64 sum per column), the blocks finishing in a
+    random order; the last one moves the totals out and zeroes the
+    state. Returns the ``na + 1`` totals."""
+    threads = 256
+    na, w = ap.shape
+    n_groups = w // k
+    nb = 8 if fp.shape[0] <= 8 else 16
+    lt_lo, _ = _cmp_chain_model(fp, lo, nb)
+    lt_hi, _ = _cmp_chain_model(fp, hi, nb)
+    mask = ~lt_lo & lt_hi & valid
+    popc = np.vectorize(lambda x: bin(int(x)).count("1"), otypes=[np.int64])
+    out = None
+    for blk in np.random.default_rng(grid).permutation(grid):
+        acc = np.zeros(na + 1, np.int32)
+        for g0 in range(blk * threads, n_groups, grid * threads):
+            g = np.arange(g0, g0 + threads)
+            inside = g < n_groups
+            g = np.where(inside, g, n_groups - 1)
+            words = (g[:, None] * k + np.arange(k)).reshape(-1)
+            m = np.where(np.repeat(inside, k), mask[words], 0)
+            m = m.astype(np.uint32)
+            acc[0] += popc(m).sum()
+            for b in range(na):
+                acc[1 + b] += popc(m & ap[b, words]).sum()
+        state[1:na + 2] += acc
+        state[0] += 1
+        if state[0] == grid:
+            out = state[1:na + 2].copy()
+            state[:] = 0
+    return out
+
+
+@pytest.mark.parametrize("w,grid,k", [(1, 1, 1), (257, 2, 1), (4096, 3, 2),
+                                      (5003, 2, 1), (20_000, 5, 2)])
+def test_filter_sum_model_matches_reference_and_leaves_state_zero(w, grid,
+                                                                  k):
+    """The model of one launch per call equals the reference's popcounts
+    at word counts below, at and beyond one wave of the grid (``grid`` x
+    256 threads x ``k`` words), and consecutive launches find the state
+    zeroed, with ``na`` 0, 1 and 24."""
+    jnp = pytest.importorskip("jax").numpy
+    from repro.kernels import ref
+    rng = np.random.default_rng(w)
+    state = np.zeros(kbf.MAX_BITS + 2, np.int64)
+    for nf, na in ((12, 24), (5, 0), (33, 1)):
+        fp, ap = _raw(rng, nf, w), _raw(rng, na, w)
+        valid = _raw(rng, 1, w)[0]
+        lo = int(rng.integers(0, 1 << nf))
+        hi = int(rng.integers(lo, 1 << nf))
+        got = _filter_sum_model(fp, ap, valid, lo, hi, grid, k, state)
+        want = np.asarray(ref.filter_agg_popcounts(
+            jnp.asarray(fp), jnp.asarray(ap), lo, hi, jnp.asarray(valid)))
+        np.testing.assert_array_equal(got, want)
+        assert not state.any()
+
+
+@pytest.mark.parametrize("na", [0, 1])
+def test_filter_sum_count_alone_and_one_plane(na):
+    """``na = 0`` (COUNT alone) and ``na = 1`` against the reference's
+    ``filter_agg_popcounts``, with a filter wider than one chunk."""
+    jnp = pytest.importorskip("jax").numpy
+    from repro.kernels import ref
+    rng = np.random.default_rng(na)
+    w = 3001
+    fp, ap = _raw(rng, 40, w), _raw(rng, na, w)
+    valid = _raw(rng, 1, w)[0]
+    for lo, hi in ((0, 1 << 40), (5, (1 << 39) + 7), (9, 3)):
+        cnt, pcs = kfa.filter_sum(_i32(fp), _i32(ap), _i32(valid), lo, hi)
+        assert cnt.dtype == pcs.dtype == torch.int64 and pcs.shape == (na,)
+        want = np.asarray(ref.filter_agg_popcounts(
+            jnp.asarray(fp), jnp.asarray(ap), lo, hi, jnp.asarray(valid)))
+        np.testing.assert_array_equal(np.r_[int(cnt), pcs.numpy()], want)
+
+
+def test_filter_sum_refuses_int32_overflow_before_build(monkeypatch,
+                                                        tmp_path):
+    """A block counts in int32, up to 32 records a word: a stack of
+    ``MAX_WORDS`` words could reach 2**31, so the wrapper raises before it
+    builds anything (nvcc is absent here) and counts no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import build as kbuild
+    monkeypatch.setattr(kbuild, "_libs", {})
+    monkeypatch.setattr(kbuild, "_BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    assert kfa.MAX_WORDS == 1 << 26
+    before = kfa.launches
+    with FakeTensorMode():
+        for w in (kfa.MAX_WORDS, kfa.MAX_WORDS + 5):
+            planes = torch.empty((3, w), dtype=torch.int32, device="cuda")
+            agg = torch.empty((1, w), dtype=torch.int32, device="cuda")
+            valid = torch.empty(w, dtype=torch.int32, device="cuda")
+            with pytest.raises(ValueError, match=(
+                    rf"filter_sum counts each block's records in int32: {w} "
+                    r"words could reach 2\*\*31 in one block \(at most "
+                    r"67108863 words\)")):
+                kfa.filter_sum(planes, agg, valid, 1, 5)
+    assert kfa.launches == before
+    assert kbuild._libs == {}
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -305,3 +509,137 @@ def test_eq_imm_matches_plain_on_card_any_width_and_word_count(bits):
             assert torch.equal(kbf.eq_imm(xc, imm).cpu(),
                                kbf.eq_imm_torch(x, imm)), (n, imm)
     torch.cuda.synchronize()
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+
+
+def _misaligned(x):
+    """A contiguous CUDA copy of ``x`` whose data pointer is 4-byte but not
+    8-byte aligned (one word into a larger buffer)."""
+    buf = torch.empty(x.numel() + 1, dtype=torch.int32, device="cuda")
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 8 == 4 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 4, 8, 9, 16, 17, 21, 32, 33, 64, 1024])
+def test_cmp_imm_matches_plain_on_card_any_width_and_word_count(bits):
+    """cmp_imm at every instance's edges (8, 16, 32 planes; wider stacks
+    16 at a time, up to 1,024) and path d's widths (4-21), at W % 4 = 0,
+    1, 2, 3 and on a view that is 4- but not 8-byte aligned, with
+    immediates 0, all-ones, only the top bit, negative and too wide."""
+    _needs_card()
+    rng = np.random.default_rng(bits)
+    base = 4_003 if bits > 64 else 100_003
+    raw = _raw(rng, bits, base)
+    top = (1 << bits) - 1
+    imms = (0, top, 1 << (bits - 1), top ^ 0x55, -7,
+            (1 << bits) | (1 << (bits + 9)) | 6)
+    stacks = [_i32(raw[:, :base - k]) for k in range(4)]
+    for x in stacks:
+        for xc in (x.cuda(), _misaligned(x)):
+            for imm in imms:
+                for got, want in zip(kbf.cmp_imm(xc, imm),
+                                     kbf.cmp_imm_torch(x, imm)):
+                    assert torch.equal(got.cpu(), want), (x.shape, imm)
+    torch.cuda.synchronize()
+
+
+# (nf, na) pairs that reach both filter chunk sizes (8, 16) and stacks
+# read in several chunks.
+FILTER_SUM_CARD = [(12, 0), (5, 1), (12, 24), (17, 33), (40, 64),
+                   (33, 1024)]
+# Word counts: one word, a block's edges, lineitem at SF 1, and more than
+# one wave of the persistent grid (132 SMs x 8 blocks x 256 threads x 2).
+FILTER_SUM_WORDS = [1, 255, 256, 257, 188_416, 1_100_000]
+
+
+def _filter_sum_case(nf, na, w, gen):
+    def rand(*shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                             device="cuda", generator=gen)
+    return rand(nf, w), rand(na, w), rand(w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,na", FILTER_SUM_CARD)
+def test_filter_sum_matches_plain_on_card(nf, na):
+    """filter_sum == filter_sum_torch on the card at every word count of
+    FILTER_SUM_WORDS, on a misaligned valid plane too, for ranges that
+    select some, none and all records."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(nf * 1000 + na)
+    for w in FILTER_SUM_WORDS:
+        if na * w > 200_000_000:            # 800 MB of aggregate planes
+            w = 188_416
+        fp, ap, valid = _filter_sum_case(nf, na, w, gen)
+        for v in (valid, _misaligned(valid)):
+            for lo, hi in ((3, (1 << nf) - 9), (9, 3), (0, 1 << nf)):
+                got = kfa.filter_sum(fp, ap, v, lo, hi)
+                want = kfa.filter_sum_torch(fp, ap, v, lo, hi)
+                for g, w_ in zip(got, want):
+                    assert torch.equal(g, w_), (nf, na, w, lo, hi)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_filter_sum_from_threads_and_streams():
+    """Four host threads calling filter_sum at once on one stream, then
+    calls alternating between two streams: every result equals plain (the
+    state is per stream, and the kernel returns it to zeros)."""
+    import threading
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    fp, ap, valid = _filter_sum_case(12, 24, 188_416, gen)
+    want = [t.cpu() for t in kfa.filter_sum_torch(fp, ap, valid, 5, 3000)]
+    results, errors = [], []
+
+    def run():
+        try:
+            for _ in range(25):
+                results.append(kfa.filter_sum(fp, ap, valid, 5, 3000))
+        except Exception as e:            # reported below
+            errors.append(e)
+    threads = [threading.Thread(target=run) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for k in range(20):
+        with torch.cuda.stream(streams[k % 2]):
+            results.append(kfa.filter_sum(fp, ap, valid, 5, 3000))
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert len(results) == 120
+    for cnt, pcs in results:
+        assert torch.equal(cnt.cpu(), want[0])
+        assert torch.equal(pcs.cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_filter_sum_is_one_kernel_launch():
+    """A warm filter_sum call (its library built, its stream's state
+    allocated) runs exactly one CUDA kernel: no zero fill of partials, no
+    torch reduction."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fp, ap, valid = _filter_sum_case(12, 24, 188_416, gen)
+    kfa.filter_sum(fp, ap, valid, 5, 3000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kfa.filter_sum(fp, ap, valid, 5, 3000)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(names) == 1 and "filter_sum_kernel" in names[0], names
