@@ -21,10 +21,15 @@ Phases (any failure exits non-zero before the last line):
    decodes), on all nine widths together under one selected record and
    under an all-ones mask, and from four host threads at once on one
    stream;
-   ``bitpack``/``bitunpack`` against their plain versions on random 0/1
-   data and all-ones words; ``eq_imm``/``cmp_imm``/``range_mask``
-   against their plain versions on every immediate predicate operand the
-   eager engine hands them over the 34 programs and on random stacks of
+   ``bitpack``/``bitunpack`` against their plain versions on random
+   words at 4, 5, 100,003 and 250,001 words (a multiple of no tile),
+   all-ones and bit-31 words and 3 words, the round trip and any-uint32
+   pack input, each from the tensors as allocated and from 4-byte
+   aligned copies (``bitpack``'s scalar path; ``bitunpack`` reads its
+   words with scalar loads either way);
+   ``eq_imm``/``cmp_imm``/``range_mask`` against their plain versions on
+   every immediate predicate operand the eager engine hands them over the
+   34 programs and on random stacks of
    widths 1, 7, 8, 9, 16, 17, 31, 32, 33, 64 and the widest operand
    (immediates 0, 2^n - 1, bit 31 set, bits above the width), ``eq_imm``
    also at W % 4 = 0, 1, 2, 3 (each on a copy 4- but not 8-byte aligned
@@ -95,6 +100,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -115,6 +121,9 @@ HOST_SPECS = ("Q3", "Q5", "Q10", "Q12", "Q14", "Q19")
 # 33 (planes past 32 add nothing).
 MAT_WIDTHS = (1, 7, 8, 9, 16, 17, 31, 32, 33)
 N_HOST_PROGRAMS = 16
+# Column transform word counts: short of a tile (128 rows), a multiple of
+# none, and more tiles than the card holds at once.
+COLUMN_WORDS = (4, 5, 100_003, 250_001)
 # A spin of about 2.5 ms at the H100's 1,980 MHz: long enough for the host
 # to queue a wrapper's launches behind it (tens of microseconds).
 AHEAD_CYCLES = 5_000_000
@@ -570,15 +579,22 @@ def check_materialize_threads(planes, mask, n_threads=4, calls=25) -> None:
                  "plain")
 
 
-def check_column_transform(what, words) -> int:
-    """bitunpack and bitpack vs their plain versions on ``words``; the
-    round trip must give the words back. Returns the max abs diff."""
+def check_column_transform(what, words, gen) -> int:
+    """bitunpack and bitpack vs their plain versions on ``words``, from
+    the tensors as they are (16-byte aligned: bitpack's vector loads) and
+    from 4-byte aligned copies (its scalar path); the round trip must
+    give the words back, and random any-uint32 rows (from ``gen``) pack to
+    the plain version's wrapped sum. Returns the max abs diff."""
     from repro_torch.kernels import bitpack as kb
-    bits = kb.bitunpack(words)
-    packed = kb.bitpack(bits)
-    diff = max_abs_diff([bits, packed, packed],
-                        [kb.bitunpack_torch(words), kb.bitpack_torch(bits),
-                         words])
+    want = kb.bitunpack_torch(words)
+    wide = torch.randint(-(1 << 31), 1 << 31, (words.shape[0], 32),
+                         dtype=torch.int32, generator=gen).cuda()
+    want_wide = kb.bitpack_torch(wide)
+    diff = 0
+    for place in (torch.Tensor.contiguous, misaligned):
+        got = [kb.bitunpack(place(words)), kb.bitpack(place(want)),
+               kb.bitpack(place(wide))]
+        diff = max(diff, max_abs_diff(got, [want, words, want_wide]))
     torch.cuda.synchronize()
     if diff:
         fail(f"bitpack/bitunpack != plain on {what}: max abs diff {diff}")
@@ -628,18 +644,24 @@ def phase_new_kernels_vs_plain() -> tuple[int, int]:
             f"widths {MAT_WIDTHS} together, {what}", mixed, mask.cuda())[0])
     check_materialize_threads(mixed, torch.full_like(one, -1).cuda())
     col = 0
-    for what, words in (
-            ("random words", torch.randint(-(1 << 31), 1 << 31, (n_words,),
-                                           dtype=torch.int32, generator=g)),
-            ("all-ones words", torch.full((n_words,), -1,
+    cases = [(f"{w} random words", torch.randint(
+        -(1 << 31), 1 << 31, (w,), dtype=torch.int32, generator=g))
+        for w in COLUMN_WORDS]
+    cases += [("all-ones words", torch.full((n_words,), -1,
+                                            dtype=torch.int32)),
+              ("bit-31 words", torch.full((n_words,), -(1 << 31),
                                           dtype=torch.int32)),
-            ("3 words", torch.tensor([0, -1, -(1 << 31)],
-                                     dtype=torch.int32))):
-        col = max(col, check_column_transform(what, words.cuda()))
+              ("3 words", torch.tensor([0, -1, -(1 << 31)],
+                                       dtype=torch.int32))]
+    for what, words in cases:
+        col = max(col, check_column_transform(what, words.cuda(), g))
     print(f"phase 3 ok: materialize == plain on {N_HOST_PROGRAMS} programs "
           f"at SF {SMOKE_SF}, {12 * len(MAT_WIDTHS) + 2} random cases "
           f"(widths {MAT_WIDTHS}) and from 4 threads on one stream; "
-          "bitpack/bitunpack == plain on 3 cases", flush=True)
+          f"bitpack/bitunpack == plain on {len(cases)} cases (random at "
+          f"{COLUMN_WORDS} words, all-ones, bit 31, 3 words; any-uint32 "
+          "pack input), each aligned and from a 4-byte aligned copy",
+          flush=True)
     return worst, col
 
 
@@ -739,7 +761,7 @@ def phase_host_path(db, peaks, flush):
     return fused, mat
 
 
-def phase_column_transform(db, flush):
+def phase_column_transform(db, peaks, flush):
     """Path c: Q6's SF 1 lineitem mask through ``ops.unpack_mask`` and
     ``ops.pack_mask``, checked against ORACLE's selection; then both
     kernels against plain at that shape and their times. Returns the two
@@ -767,26 +789,26 @@ def phase_column_transform(db, flush):
     got = bits.reshape(-1)[:rel.n_records].cpu().numpy().astype(bool)
     if not (np.array_equal(got, want) and torch.equal(words, mask)):
         fail("column transform of Q6's mask disagrees with ORACLE")
-    diff = check_column_transform("Q6 lineitem mask", mask)
+    diff = check_column_transform("Q6 lineitem mask", mask,
+                                  torch.Generator().manual_seed(SEED))
     w = mask.shape[0]
     print(f"phase 4c ok: Q6 lineitem mask ({w}, 32) through unpack_mask/"
           f"pack_mask == ORACLE, kernels == plain", flush=True)
-    bound_ms = (w * 4 + w * 32 * 4) / HBM_BYTES_PER_S * 1e3
     entries = []
     for name, line, fn, plain, x in (
             ("bitpack", 27, kb.bitpack, kb.bitpack_torch, bits),
             ("bitunpack", 48, kb.bitunpack, kb.bitunpack_torch, mask)):
+        # A shift and an add (pack) or an and (unpack) per element.
+        t = kernel_timing(f"{name} at ({w}, 32)", partial(fn, x),
+                          partial(plain, x), w * 4 + w * 32 * 4, 2 * 32 * w,
+                          0, peaks, flush)
         entries.append({
             "name": name, "route": "cuda", "source": CSRC + "bitpack.cu",
             "replaces": f"src/repro/kernels/bitpack.py:{line}",
-            "launches": launches[name], "max_abs_err": diff,
-            "ms": cuda_ms(lambda: fn(x), 5, flush, ahead=True),
-            "plain_ms": cuda_ms(lambda: plain(x), 3),
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
-        print(f"{name} at ({w}, 32): kernel {entries[-1]['ms']:.4f} ms, "
-              f"call {cuda_ms(lambda: fn(x), 5, flush):.4f} ms, plain "
-              f"{entries[-1]['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms",
-              flush=True)
+            "launches": launches[name], "max_abs_err": diff, "ms": t["ms"],
+            "read_flush_ms": t["read_flush_ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     return entries
 
 
@@ -1239,11 +1261,11 @@ def q6_shipdate_range(db) -> tuple[int, int]:
     return lo, hi
 
 
-def filter_timing(name, fn, plain, nbytes, logic, popc, peaks, flush):
+def kernel_timing(name, fn, plain, nbytes, logic, popc, peaks, flush):
     """Card time (queued behind a spin, cold L2: after the method's write
     flush, and after a read flush, which leaves no dirty lines for the
     kernel's reads to evict), one call's time, the plain version's time
-    and the bound of one filter kernel call."""
+    and the bound of one kernel call."""
     bound, by = bound_s(nbytes, logic, popc, peaks)
     t = {"ms": cuda_ms(fn, 5, flush, ahead=True),
          "read_flush_ms": cuda_ms(fn, 5, flush, ahead=True, read_flush=True),
@@ -1343,7 +1365,7 @@ def phase_kernel_api(db, peaks, flush):
     for name, (line, fn, plain, nbytes, logic, popc, err) in cases.items():
         shape = f"({nf}+{na}+1, {w})" if name == "filter_sum" \
             else f"({nf}, {w})"
-        t = filter_timing(f"{name} at {shape}", fn, plain, nbytes, logic,
+        t = kernel_timing(f"{name} at {shape}", fn, plain, nbytes, logic,
                           popc, peaks, flush)
         src = "filter_aggregate" if name == "filter_sum" else "bitwise_filter"
         entries.append({"name": name, "route": "cuda",
@@ -1414,7 +1436,7 @@ def main() -> None:
     floor = timing_floor(flush)
     db, path_a = phase_main_path(peaks, flush)
     path_b, mat = phase_host_path(db, peaks, flush)
-    cols = phase_column_transform(db, flush)
+    cols = phase_column_transform(db, peaks, flush)
     eager_launches, eager_worst, eager = phase_eager_path(
         db, path_a["results"], peaks, flush, floor)
     api = phase_kernel_api(db, peaks, flush)
