@@ -69,7 +69,17 @@ Phases (any failure exits non-zero before the last line):
       ``l_shipdate`` with Q6's bounds and ``ops.fused_filter_sum`` with
       ``l_extendedprice`` (exact count and sum), ``predicate_eq_imm``/
       ``predicate_cmp_imm`` on ``l_quantity``, all against numpy over the
-      encoded columns; each launches once.
+      encoded columns; each launches once;
+   f. linked batches through ``execute(list)``: (i) Q1 + Q6 + Q14 (Q14
+      with its host stage), (ii) the specs of a., (iii) every spec of
+      ``queries.all_queries()``, host stages included. Every result equals
+      the same spec's sequential FUSED result of a. or b. and its ORACLE
+      result; ``fused_program`` launches once per relation a batch
+      touches, ``materialize`` once per host-stage relation program. Per
+      batch: launches against the sequential count, plane reads against
+      the singles' sum, deduped instructions, the linked tapes' card time
+      (each kernel == plain) against the single programs', and the
+      batch's warm execute time against the summed execute_ms.
    Then every kernel against its plain version bit for bit at those SF 1
    shapes, and the times: first the timing floor (an empty kernel timed
    the same way, after a 64 MB write flush, a read flush and none); per
@@ -88,8 +98,9 @@ Phases (any failure exits non-zero before the last line):
    specs, equal on FUSED and EAGER (the same traces, and masks path d
    found equal): the paper's analytical model, not a measurement of the
    card.
-6. One ``{"kernels": [...]}`` JSON line (eight kernels), then
-   ``{"ok": true, ...}`` last.
+6. One ``{"kernels": [...]}`` JSON line (eight kernels; ``fused_program``
+   over the programs of paths a, b and f), then ``{"ok": true, ...}``
+   last.
 
 Seeds fix the data; nothing is read from outside the checkout.
 """
@@ -361,8 +372,9 @@ def phase_main_path(peaks, flush):
     if launches != n_programs:
         fail(f"fused_program launched {launches} times for {n_programs} "
              "relation programs")
+    oracles = {}
     for spec, fused in zip(run, results):
-        oracle = db.execute(spec, engine=D.Engine.ORACLE)
+        oracle = oracles[spec.name] = db.execute(spec, engine=D.Engine.ORACLE)
         for rel in spec.filters:
             if not np.array_equal(fused.relations[rel].mask,
                                   oracle.relations[rel].mask):
@@ -385,9 +397,10 @@ def phase_main_path(peaks, flush):
     print("query   execute_ms  kernel_ms   call_ms busy_%  stack_ms   "
           "plain_ms  bound_ms bound_by   per relation: entries/slots "
           "recorded>scheduled/tile=threads*K/blocks per SM/registers")
+    exec_all = {}
     for spec in run:
         ps = per_prog[spec.name]
-        exec_ms = cuda_ms(lambda: db.execute(spec), 3)
+        exec_ms = exec_all[spec.name] = cuda_ms(lambda: db.execute(spec), 3)
         kernel_ms = sum(p["kernel_ms"] for p in ps)
         bounds = [bound_s(p["bytes"], p["logic"], p["popc"], peaks)
                   for p in ps]
@@ -407,7 +420,8 @@ def phase_main_path(peaks, flush):
     print_fused_total(f"the {len(progs)} programs of path a", progs, peaks)
     worst = max(worst, words_per_thread_study(db, flush))
     return db, {"launches": launches, "max_abs_err": worst, "progs": progs,
-                "results": {s.name: r for s, r in zip(run, results)}}
+                "results": {s.name: r for s, r in zip(run, results)},
+                "oracle": oracles, "exec_ms": exec_all, "by_query": per_prog}
 
 
 def fused_totals(progs, peaks) -> dict:
@@ -684,8 +698,9 @@ def phase_host_path(db, peaks, flush):
         fail(f"host specs: fused_program launched {launches} and "
              f"materialize {mat_launches} times for {N_HOST_PROGRAMS} "
              "relation programs")
+    oracles = {}
     for spec, fused in zip(specs, results):
-        oracle = db.execute(spec, engine=D.Engine.ORACLE)
+        oracle = oracles[spec.name] = db.execute(spec, engine=D.Engine.ORACLE)
         if not fused.rows or fused.rows != oracle.rows:
             fail(f"{spec.name}: FUSED rows != ORACLE ({len(fused.rows)} vs "
                  f"{len(oracle.rows)} rows)")
@@ -726,9 +741,10 @@ def phase_host_path(db, peaks, flush):
     print("query   execute_ms  pim_ms   host_ms  fused_ms  mat_ms  "
           "mat_call_ms  mat_plain_ms  mat_bound_ms  rows  "
           "relation:materialized rows/mat_ms")
+    exec_all = {}
     for spec in specs:
         ps = per_prog[spec.name]
-        exec_ms = cuda_ms(lambda: db.execute(spec), 3)
+        exec_ms = exec_all[spec.name] = cuda_ms(lambda: db.execute(spec), 3)
         res = db.execute(spec)
         print(f"{spec.name:7s} {exec_ms:10.3f} {res.pim_s * 1e3:8.3f} "
               f"{res.host_s * 1e3:9.3f} "
@@ -757,7 +773,11 @@ def phase_host_path(db, peaks, flush):
            / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", "library_ms": None}
     fused = {"launches": launches, "max_abs_err": fused_worst,
-             "progs": fused_progs}
+             "progs": fused_progs,
+             "results": {s.name: r for s, r in zip(specs, results)},
+             "oracle": oracles, "exec_ms": exec_all,
+             "by_query": {n: [p["fused"] for p in ps]
+                          for n, ps in per_prog.items()}}
     return fused, mat
 
 
@@ -1378,6 +1398,123 @@ def phase_kernel_api(db, peaks, flush):
     return entries
 
 
+def linked_batches():
+    """Path f's batches, (label, specs): (i) Q1 + Q6 + Q14 (Q14 with its
+    host stage), (ii) path a's specs, (iii) every spec of
+    ``queries.all_queries()``, host stages included."""
+    from repro_torch.db import queries as Q
+    return [("(i) Q1+Q6+Q14", [Q.get_query(n) for n in ("Q1", "Q6", "Q14")]),
+            ("(ii) 19 filter_only + 2 MIN/MAX",
+             [s.filter_only() for s in Q.all_queries()] + minmax_specs()),
+            ("(iii) all_queries()", Q.all_queries())]
+
+
+def linked_programs(db, specs):
+    """(relation, CompiledProgram) of each relation of a batch, linked and
+    compiled as ``PimDatabase.dispatch_batch`` links and compiles them."""
+    from repro_torch.core import program as prog
+    _, rel_programs = db._compile_batch(specs)
+    out = []
+    for rel_name, programs in rel_programs.items():
+        rel = db.relations[rel_name]
+        lp = prog.link_programs(programs, relation=rel)
+        out.append((rel, prog.compile_program(
+            rel, lp.instrs, mask_outputs=lp.mask_outputs,
+            query_slots=lp.slots)))
+    return out
+
+
+def same_result(spec, got, want) -> bool:
+    """A host-stage spec's rows and materialized counts, else its masks and
+    aggregates, equal."""
+    if spec.host is not None:
+        return (got.rows == want.rows
+                and got.materialized_rows == want.materialized_rows)
+    return got.aggregates == want.aggregates and all(
+        np.array_equal(got.relations[r].mask, want.relations[r].mask)
+        for r in spec.filters)
+
+
+def phase_linked_batches(db, path_a, path_b, flush):
+    """Path f: the batches of ``linked_batches`` through ``execute(list)``
+    at SF 1. Every result equals the same spec's sequential FUSED result of
+    path a or b and its ORACLE result; ``fused_program`` launches once per
+    relation the batch touches, ``materialize`` once per host-stage
+    relation program, nothing else. Then each relation's linked tape: the
+    kernel against plain bit for bit and its card time, beside the summed
+    card time of the specs' single programs (paths a and b), and the
+    batch's warm execute time beside the specs run one after another now
+    and their execute_ms summed from paths a and b. Returns the path's
+    fused_program record and its materialize launches."""
+    from repro_torch.db import exec as E
+
+    def seq(spec, key):
+        return (path_b if spec.host is not None else path_a)[key][spec.name]
+
+    record = {"launches": 0, "max_abs_err": 0, "progs": []}
+    mat_launches = 0
+    print("batch                            specs launches(seq) "
+          "plane_reads(singles) deduped  kernel_ms(singles)  "
+          "execute_ms(sequential now/paths a+b)   per relation: programs/"
+          "reads/deduped/kernel_ms/entries/slots recorded>scheduled/tile="
+          "threads*K/blocks per SM/registers", flush=True)
+    for label, specs in linked_batches():
+        reset_launches()
+        results = db.execute(specs)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        stats = db.last_batch_stats
+        linked = linked_programs(db, specs)
+        n_host = sum(len(E.split_query(s)[0]) for s in specs
+                     if s.host is not None)
+        want = dict.fromkeys(launches, 0)
+        want.update(fused_program=len(linked), materialize=n_host)
+        if launches != want or stats["n_dispatches"] != len(linked):
+            fail(f"path f {label}: launches {launches}, expected {want} "
+                 f"(n_dispatches {stats['n_dispatches']})")
+        for spec, got in zip(specs, results):
+            for what, name in (("results", "sequential FUSED"),
+                               ("oracle", "ORACLE")):
+                if not same_result(spec, got, seq(spec, what)):
+                    fail(f"path f {label}: {spec.name} != its {name} result")
+        singles = [seq(s, "results").batch_stats for s in specs]
+        rels = stats["relations"]
+        timed = [fused_timing(cp, rel, flush) for rel, cp in linked]
+        record["max_abs_err"] = max([record["max_abs_err"]]
+                                    + [t["diff"] for t in timed])
+        record["launches"] += launches["fused_program"]
+        record["progs"] += timed
+        mat_launches += launches["materialize"]
+        wall = cuda_ms(lambda: db.execute(specs), 3)
+        seq_now = cuda_ms(lambda: [db.execute(s) for s in specs], 3)
+        seq_launches = sum(st["n_dispatches"] for st in singles)
+        reads = sum(r["plane_reads"] for r in rels.values())
+        seq_reads = sum(r["plane_reads"] for st in singles
+                        for r in st["relations"].values())
+        kernel_ms = sum(t["kernel_ms"] for t in timed)
+        seq_kernel_ms = sum(p["kernel_ms"] for s in specs
+                            for p in seq(s, "by_query"))
+        seq_wall = sum(seq(s, "exec_ms") for s in specs)
+        print(f"{label:32s} {len(specs):5d} {stats['n_dispatches']:4d}"
+              f"({seq_launches:3d}) {reads:8d}({seq_reads:6d}) "
+              f"{sum(r['instrs_deduped'] for r in rels.values()):7d} "
+              f"{kernel_ms:9.4f}({seq_kernel_ms:8.4f}) "
+              f"{wall:10.3f}({seq_now:10.3f}/{seq_wall:10.3f})  "
+              + " ".join(
+                  f"{t['relation']}:{rels[t['relation']]['n_programs']}/"
+                  f"{rels[t['relation']]['plane_reads']}/"
+                  f"{rels[t['relation']]['instrs_deduped']}/"
+                  f"{t['kernel_ms']:.4f}/{tape_shape(t)[len(t['relation']) + 1:]}"
+                  for t in timed), flush=True)
+    print(f"phase 4f ok: {len(linked_batches())} linked batches at SF "
+          f"{MAIN_SF} == sequential FUSED and ORACLE; one fused_program "
+          f"launch per relation ({record['launches']}), one materialize "
+          f"launch per host-stage relation program ({mat_launches}); "
+          f"fused_program == plain on {len(record['progs'])} linked tapes",
+          flush=True)
+    return record, mat_launches
+
+
 def phase_cost_model(db, fused, eager) -> None:
     """``db.report`` of the 19 specs at ``sf_scale`` 1000 (SF 1 -> 1000).
     The numbers are the paper's analytical PIM model, not times of this
@@ -1440,9 +1577,13 @@ def main() -> None:
     eager_launches, eager_worst, eager = phase_eager_path(
         db, path_a["results"], peaks, flush, floor)
     api = phase_kernel_api(db, peaks, flush)
+    path_f, mat_f = phase_linked_batches(db, path_a, path_b, flush)
+    print_fused_total(f"the {len(path_f['progs'])} linked programs of path f",
+                      path_f["progs"], peaks)
     phase_cost_model(db, path_a["results"], eager)
-    fused = fused_entry([path_a, path_b], peaks)
+    fused = fused_entry([path_a, path_b, path_f], peaks)
     fused["max_abs_err"] = max(worst, fused["max_abs_err"])
+    mat["launches"] += mat_f
     mat["max_abs_err"] = max(mat_worst, mat["max_abs_err"])
     for c in cols:
         c["max_abs_err"] = max(col_worst, c["max_abs_err"])

@@ -15,14 +15,21 @@ source planes and weights the popcounts exactly on the host. Each
 program kernel stored; its values stay on the device until
 ``ProgramResult.materialized`` copies the selected prefix.
 
-Left out so far: cross-query linking (``link_programs``, ``QuerySlot``;
-ROADMAP A7), sharding (A14) and the static verifier that the reference
-runs on every cache miss (A9; it checks the plan and changes no result).
+:func:`link_programs` merges several queries' programs over one relation
+into one SSA program (shared subexpressions value-numbered away, colliding
+registers renamed); compiled with its ``query_slots``, it is still one
+launch, and :meth:`ProgramResult.query` reads each query's outputs back
+under its own register names.
+
+Left out so far: sharding (ROADMAP A14) and the static verifier that the
+reference runs on every cache miss (A9; it checks the plan and changes no
+result).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import os
 import threading
 from typing import (Callable, Dict, FrozenSet, List, Mapping, Optional,
@@ -571,6 +578,149 @@ def frees_by_instr(n_instrs: int, last_use: Mapping[str, int],
 
 
 # --------------------------------------------------------------------------
+# Cross-query linking: many programs over one relation -> one SSA program
+# --------------------------------------------------------------------------
+# Operand field names per instruction kind (the register-valued fields a
+# linker must rename); every other dataclass field is static and becomes
+# part of the value-numbering key unchanged.
+_OPERAND_FIELDS: Dict[str, Tuple[str, ...]] = {
+    "EqualImm": ("attr",), "NotEqualImm": ("attr",),
+    "LessThanImm": ("attr",), "GreaterThanImm": ("attr",),
+    "AddImm": ("attr",),
+    "Equal": ("attr_a", "attr_b"), "LessThan": ("attr_a", "attr_b"),
+    "Add": ("attr_a", "attr_b"), "Subtract": ("attr_a", "attr_b"),
+    "Multiply": ("attr_a", "attr_b"),
+    "BitwiseAnd": ("src_a", "src_b"), "BitwiseOr": ("src_a", "src_b"),
+    "BitwiseNot": ("src",),
+    "SetReset": (),
+    "ReduceSum": ("attr", "mask"), "ReduceMinMax": ("attr", "mask"),
+    "Materialize": ("mask",),            # plus the attrs tuple, special-cased
+    "ColumnTransform": ("mask",),
+}
+# Kinds whose operand order does not change the value: their key sorts the
+# operands, so ``And(a, b)`` dedups against ``And(b, a)``. Multiply is not
+# here: its value is symmetric but its Table-4 cycle count is not.
+_COMMUTATIVE_KINDS = frozenset(
+    {"BitwiseAnd", "BitwiseOr", "Equal", "Add"})
+
+
+def _linked_key(ins: isa.PimInstruction, rename: Mapping[str, str]) -> tuple:
+    """Value-numbering key of one instruction under a register renaming:
+    (kind, linked operand names, static fields). Two instructions with
+    equal keys compute the same value in the linked program."""
+    def rn(v: str) -> str:
+        return rename.get(v, v)
+
+    kind = ins.kind
+    op_fields = _OPERAND_FIELDS[kind]
+    ops: tuple = tuple(rn(getattr(ins, f)) for f in op_fields)
+    if kind == "Materialize":
+        ops = (tuple(rn(a) for a in ins.attrs),) + ops
+    elif kind in _COMMUTATIVE_KINDS:
+        ops = tuple(sorted(ops))
+    skip = set(op_fields) | {"dest", "attrs"}
+    static = tuple((f.name, getattr(ins, f.name))
+                   for f in dataclasses.fields(ins) if f.name not in skip)
+    return (kind, ops, static)
+
+
+def _relink_instr(ins: isa.PimInstruction, rename: Mapping[str, str],
+                  dest: str) -> isa.PimInstruction:
+    """Rebuild one instruction with renamed operands and a new dest."""
+    def rn(v: str) -> str:
+        return rename.get(v, v)
+
+    kw: Dict[str, object] = {f: rn(getattr(ins, f))
+                             for f in _OPERAND_FIELDS[ins.kind]}
+    if ins.kind == "Materialize":
+        kw["attrs"] = tuple(rn(a) for a in ins.attrs)
+    return dataclasses.replace(ins, dest=dest, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuerySlot:
+    """Output wiring of one source program inside a linked program:
+    ``reg_map`` maps every register the source program defined to the
+    linked register that computes the same value; ``mask_outputs`` are the
+    source program's requested masks, already translated."""
+    reg_map: Mapping[str, str]
+    mask_outputs: Tuple[str, ...]
+
+    def reg(self, name: str) -> str:
+        return self.reg_map.get(name, name)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkedProgram:
+    """Result of :func:`link_programs`: one SSA program + per-query slots."""
+    instrs: Tuple[isa.PimInstruction, ...]
+    mask_outputs: Tuple[str, ...]        # union of all slots', deduped
+    slots: Tuple[QuerySlot, ...]
+    n_instrs_unlinked: int               # sum of member program lengths
+    n_deduped: int                       # instructions removed by CSE
+
+    @property
+    def cache_key(self) -> str:
+        """Short stable digest of the linked instruction stream + outputs:
+        equal for equal-meaning batches (canonical compiles, deterministic
+        linking), and the reference's digest for the same batch."""
+        return hashlib.sha256(
+            repr((self.instrs, self.mask_outputs)).encode()).hexdigest()[:16]
+
+
+def link_programs(programs: Sequence[Tuple[Sequence[isa.PimInstruction],
+                                           Sequence[str]]],
+                  relation: Optional[eng.PimRelation] = None
+                  ) -> LinkedProgram:
+    """Merge several compiled instruction streams over ONE relation into a
+    single SSA program fit for one launch.
+
+    ``programs`` is a sequence of ``(instrs, mask_outputs)`` pairs, one per
+    query, in batch order. Instructions are value-numbered as they are
+    appended: one whose (kind, linked operands, static fields) key was
+    already emitted is dropped and its dest aliases the existing register.
+    Colliding dest names (un-namespaced compilers both emitting ``t0``) are
+    uniquified with a ``q<i>.`` prefix; pass ``relation`` so renames also
+    avoid its attribute names. The output stays single-assignment, so
+    ``plan_reduces`` groups one query's aggregates with another's and
+    ``plan_arith`` batches their arithmetic."""
+    reserved = {"__valid__"}
+    if relation is not None:
+        reserved.update(relation.planes)
+    value_table: Dict[tuple, str] = {}
+    linked: List[isa.PimInstruction] = []
+    used: set = set()
+    slots: List[QuerySlot] = []
+    total = deduped = 0
+    for qi, (instrs, mouts) in enumerate(programs):
+        rename: Dict[str, str] = {}
+        for ins in instrs:
+            total += 1
+            key = _linked_key(ins, rename)
+            hit = value_table.get(key)
+            if hit is not None:
+                rename[ins.dest] = hit
+                deduped += 1
+                continue
+            dest = ins.dest
+            if dest in used or dest in reserved:
+                dest = f"q{qi}.{ins.dest}"
+                while dest in used or dest in reserved:
+                    dest = "_" + dest
+            linked.append(_relink_instr(ins, rename, dest))
+            used.add(dest)
+            rename[ins.dest] = dest
+            value_table[key] = dest
+        slots.append(QuerySlot(reg_map=dict(rename),
+                               mask_outputs=tuple(rename.get(m, m)
+                                                  for m in mouts)))
+    mask_outputs = tuple(dict.fromkeys(
+        m for s in slots for m in s.mask_outputs))
+    return LinkedProgram(tuple(linked), mask_outputs, tuple(slots),
+                         total, deduped)
+
+
+# --------------------------------------------------------------------------
 # compile_program / run_program
 # --------------------------------------------------------------------------
 class LruFnCache:
@@ -655,7 +805,9 @@ def program_signature(instrs: Tuple[isa.PimInstruction, ...],
     """The static signature a tape is cached under: everything that can
     change the recorded tape — instruction stream, requested outputs and
     the source widths that fix the stacked row layout — and nothing else.
-    The relation's word count and content do not shape the tape."""
+    The relation's word count and content do not shape the tape, and a
+    linked program's ``query_slots`` are demux metadata, left out so that a
+    recurring batch hits the cache on its linked instructions alone."""
     return (instrs, mask_outputs, tuple(sorted(widths.items())))
 
 
@@ -679,11 +831,18 @@ class CompiledProgram:
     # Source attributes the non-Materialize instructions read: the program
     # kernel's input rows, in analysis.source_attrs order.
     kernel_attrs: Tuple[str, ...]
+    # Per-query output wiring of a linked multi-query program (empty for a
+    # single query's program).
+    query_slots: Tuple[QuerySlot, ...] = ()
 
     @property
     def n_dispatches(self) -> int:
         """Kernel launches per execution — the fusion headline."""
         return 1
+
+    @property
+    def n_queries(self) -> int:
+        return max(1, len(self.query_slots))
 
     @property
     def agg_plane_reads(self) -> int:
@@ -771,15 +930,55 @@ class ProgramResult:
             return sum(int(bits[b]) << b for b in range(bits.shape[0]))
         raise KeyError(name)
 
+    def query(self, q: int) -> "QueryView":
+        """Demux view for source query ``q`` of a linked program: the same
+        accessors, addressed by the query's own register names."""
+        return QueryView(self, self._cp.query_slots[q])
+
+
+class QueryView:
+    """Per-query window onto a linked program's :class:`ProgramResult`."""
+
+    def __init__(self, res: ProgramResult, slot: QuerySlot):
+        self._res = res
+        self._slot = slot
+
+    @property
+    def mask_outputs(self) -> Tuple[str, ...]:
+        return self._slot.mask_outputs
+
+    def reg(self, name: str) -> str:
+        return self._slot.reg(name)
+
+    def mask_packed(self, name: str) -> np.ndarray:
+        return self._res.mask_packed(self.reg(name))
+
+    def mask(self, name: str, n_records: Optional[int] = None) -> np.ndarray:
+        return self._res.mask(self.reg(name), n_records)
+
+    def scalar(self, name: str) -> Optional[int]:
+        return self._res.scalar(self.reg(name))
+
+    def materialized_count(self, name: str) -> int:
+        return self._res.materialized_count(self.reg(name))
+
+    def materialized(self, name: str) -> Dict[str, np.ndarray]:
+        return self._res.materialized(self.reg(name))
+
 
 def compile_program(relation: eng.PimRelation,
                     program: Sequence[isa.PimInstruction],
-                    mask_outputs: Sequence[str] = ()) -> CompiledProgram:
+                    mask_outputs: Sequence[str] = (),
+                    query_slots: Sequence[QuerySlot] = ()
+                    ) -> CompiledProgram:
     """Plan a whole relation program and lower it to one kernel tape.
 
     ``mask_outputs`` names the mask registers the host will read; every
     reduce destination automatically becomes a scalar output, every
     ``Materialize`` destination a device-resident value output.
+    ``query_slots`` (from :func:`link_programs`) is demux metadata for a
+    linked multi-query program; it does not shape the tape and is not part
+    of the cache signature.
     """
     instrs = tuple(program)
     mask_outputs = tuple(mask_outputs)
@@ -820,7 +1019,7 @@ def compile_program(relation: eng.PimRelation,
         _FN_CACHE.put(sig, tape)
     return CompiledProgram(instrs, mask_outputs, scalar_kinds, analysis,
                            plan, arith, tape, dict(widths), mat_attrs,
-                           kernel_masks, kernel_attrs)
+                           kernel_masks, kernel_attrs, tuple(query_slots))
 
 
 def stack_sources(cp: CompiledProgram,

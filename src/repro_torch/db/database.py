@@ -1,8 +1,9 @@
 """PimDatabase: the device-resident database copy + query execution.
 
-The counterpart of ``repro.db.database`` for single queries:
-``PimDatabase(tables, device="cuda").execute(spec, engine=...)`` runs one
-``QuerySpec``:
+The counterpart of ``repro.db.database``:
+``PimDatabase(tables, device="cuda").execute(spec_or_specs, engine=...)``
+runs one ``QuerySpec`` (one :class:`QueryResult`) or a list of them (one
+result per spec, in batch order):
 
   * ``Engine.FUSED`` — one kernel launch per relation program
     (``core.program``; the hand-written CUDA kernels on a CUDA device,
@@ -19,19 +20,30 @@ The counterpart of ``repro.db.database`` for single queries:
   * ``Engine.ORACLE`` — the numpy column-store scan (paper §5.5), the
     check FUSED is held to, with the same host stage over its own scans.
 
+A FUSED list of two or more specs is a linked batch: every spec is
+compiled on its own (canonical, under a ``q<i>.`` register namespace), the
+programs are grouped by relation and linked into one SSA program per
+relation (``core.program.link_programs`` dedups shared subexpressions),
+and each relation runs as ONE program launch (plus one materialize launch
+per ``Materialize``), so N queries over ``lineitem`` stream its planes
+once. The batch path is split-phase: :meth:`PimDatabase.dispatch_batch`
+compiles, links and runs the device stage, :meth:`PimDatabase.finish_query`
+runs one query's host stage (thread-safe).
+
 ``PimDatabase.report`` / :func:`cost_report` project a run to paper scale
 through the analytical cost model (``core.cost_model``: cycles, read
 traffic, latency, energy and endurance at any scale factor).
 
-Not ported yet: linked multi-spec batches (ROADMAP A7), DML, faults and
-serving (A10–A12).
+Not ported yet: DML, faults and serving (ROADMAP A10–A12).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import threading
 import time
-from typing import Dict, List, Optional, Tuple, Union
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,7 +82,8 @@ class RelationRun:
 class Engine(enum.Enum):
     """Execution substrate of :meth:`PimDatabase.execute`.
 
-    FUSED — one kernel launch per relation program.
+    FUSED — one kernel launch per relation program (linked across the
+    queries of a batch).
     EAGER — the instruction-at-a-time engine, the bit-level oracle.
     ORACLE — the numpy column-store scan baseline (paper §5.5).
     """
@@ -106,7 +119,8 @@ class QueryResult:
     min/max/avg) that the ORACLE comparison uses, ``decoded_rows()`` the
     schema's presentation — and ``materialized_rows`` the records each
     relation handed the host. ``batch_stats`` holds the FUSED run's
-    launch-level accounting (``None`` on EAGER and ORACLE)."""
+    launch-level accounting, shared by every member of one batch (``None``
+    on EAGER and ORACLE)."""
     spec: Q.QuerySpec
     engine: Engine = Engine.FUSED
     aggregates: Dict[str, Dict[str, object]] = dataclasses.field(
@@ -129,6 +143,10 @@ class QueryResult:
     @property
     def kind(self) -> str:
         return self.spec.kind
+
+    @property
+    def wall_time_s(self) -> float:
+        return self.wall_s
 
     @classmethod
     def from_table(cls, spec: Q.QuerySpec, table: E.HostTable,
@@ -161,6 +179,10 @@ class QueryResult:
         return sum(self.materialized_rows.values())
 
 
+# Legacy name of the result type.
+QueryRun = QueryResult
+
+
 def _table_rows(table: E.HostTable) -> Tuple[Tuple[str, ...], List[tuple]]:
     def cell(v):
         if v is None:
@@ -173,6 +195,47 @@ def _table_rows(table: E.HostTable) -> Tuple[Tuple[str, ...], List[tuple]]:
     rows = [tuple(cell(table.columns[c][i]) for c in cols)
             for i in range(table.n_rows)]
     return cols, rows
+
+
+@dataclasses.dataclass
+class PendingQuery:
+    """Split-phase handle between :meth:`PimDatabase.dispatch_batch` and
+    :meth:`PimDatabase.finish_query`: the device stage has run (masks,
+    aggregates and materialized columns demuxed); the host stage, if the
+    spec has one, has not."""
+    spec: Q.QuerySpec
+    engine: Engine
+    result: Optional[QueryResult] = None    # complete already (no host)
+    host: Optional[object] = None           # E.HostStage still to run
+    materialized: Dict[str, E.HostTable] = dataclasses.field(
+        default_factory=dict)
+    mat_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
+    pim_s: float = 0.0
+    batch_stats: Optional[Dict[str, object]] = None
+
+    @property
+    def needs_host(self) -> bool:
+        return self.result is None
+
+
+@dataclasses.dataclass
+class _BatchRelation:
+    """One (query, relation) program's wiring inside a linked batch."""
+    rel_name: str
+    pred: object                            # None for scan-all stages
+    compiler: Compiler
+    mask_reg: str
+    group_regs: List[Tuple[str, Dict]]
+    mat_reg: Optional[str]
+    slot: int                               # index into the relation's slots
+
+
+@dataclasses.dataclass
+class _BatchQuery:
+    """Per-query compile product of ``PimDatabase._compile_batch``."""
+    spec: Q.QuerySpec
+    host: Optional[object]                  # E.HostStage when end to end
+    rels: List[_BatchRelation]
 
 
 class PimDatabase:
@@ -190,6 +253,9 @@ class PimDatabase:
         self.tables = tables
         # Counters of the most recent FUSED execute() — None until one ran.
         self.last_batch_stats: Optional[Dict[str, object]] = None
+        # finish_query may add host_s into shared batch stats from several
+        # threads at once.
+        self._stats_lock = threading.Lock()
         self.relations: Dict[str, eng.PimRelation] = {}
         for name, cols in tables.items():
             if S.SCHEMA[name].in_pim:
@@ -199,12 +265,12 @@ class PimDatabase:
 
     # -- PIM execution ------------------------------------------------------
     def _compile_relation(self, rel: eng.PimRelation, spec: Q.QuerySpec,
-                          pred) -> Tuple[Compiler, str,
-                                         List[Tuple[str, Dict]]]:
+                          pred, namespace: str = ""
+                          ) -> Tuple[Compiler, str, List[Tuple[str, Dict]]]:
         """Compile the FULL program for one relation: filter, group masks,
         aggregates. Returns (compiler, filter mask register,
         [(group label, {agg name: (kind, reg)})])."""
-        c = Compiler(rel)
+        c = Compiler(rel, namespace=namespace)
         is_agg_rel = (spec.kind == "full" and rel.name == spec.agg_relation)
         mask_reg = c.compile_filter(pred, with_transform=not is_agg_rel)
         group_regs: List[Tuple[str, Dict]] = []
@@ -265,19 +331,34 @@ class PimDatabase:
             n_reduce_jobs=cp.n_reduce_jobs if cp else 0)
 
     # -- execution entry point ------------------------------------------------
-    def execute(self, spec: Q.QuerySpec, *,
+    def execute(self, spec_or_specs: Union[Q.QuerySpec,
+                                           Sequence[Q.QuerySpec]], *,
                 engine: Union[Engine, str, bool] = Engine.FUSED
-                ) -> QueryResult:
+                ) -> Union[QueryResult, List[QueryResult]]:
         """Run one :class:`~repro_torch.db.queries.QuerySpec` on ``engine``
         (an :class:`Engine`, its string value or a legacy ``fused=``
         bool): end to end when it carries a host stage, else its masks
-        and aggregates. ``last_batch_stats`` is set by FUSED runs only. A
-        list of specs raises ``NotImplementedError``."""
+        and aggregates. A sequence returns one result per spec in batch
+        order: on FUSED, two or more specs are linked into one program
+        launch per relation (:meth:`dispatch_batch`); ``[]`` returns
+        ``[]`` and clears ``last_batch_stats``, and a one-element list or
+        another engine runs spec by spec. ``last_batch_stats`` is set by
+        FUSED runs only."""
         engine = Engine.coerce(engine)
-        if not isinstance(spec, Q.QuerySpec):
-            raise NotImplementedError(
-                "batches of specs, linked into one launch per relation, "
-                "are not ported yet: ROADMAP A7")
+        if isinstance(spec_or_specs, Q.QuerySpec):
+            return self._execute_one(spec_or_specs, engine)
+        specs = list(spec_or_specs)
+        if not specs:
+            # Nothing to link or launch; clear stale batch counters so no
+            # caller reads a previous batch's as this one's.
+            self.last_batch_stats = _empty_batch_stats()
+            return []
+        if len(specs) == 1 or engine is not Engine.FUSED:
+            return [self._execute_one(s, engine) for s in specs]
+        pendings, _ = self.dispatch_batch(specs)
+        return [self.finish_query(p) for p in pendings]
+
+    def _execute_one(self, spec: Q.QuerySpec, engine: Engine) -> QueryResult:
         if engine is Engine.ORACLE:
             return self._execute_baseline(spec)
         if spec.host is not None:
@@ -384,6 +465,175 @@ class PimDatabase:
         return QueryResult.from_table(spec, table, pim_s, host_s, mat_rows,
                                       engine=engine, batch_stats=stats)
 
+    # -- batched execution (cross-query linking) ------------------------------
+    def _compile_batch(self, specs) -> Tuple[
+            List[_BatchQuery], Dict[str, List[Tuple[tuple, tuple]]]]:
+        """Compile every spec's per-relation programs, each under its own
+        ``q<i>.`` register namespace, and group them by relation for
+        linking. Returns (per-query wiring, {relation: [(instrs,
+        mask_outputs)] in slot order})."""
+        works: List[_BatchQuery] = []
+        rel_programs: Dict[str, List[Tuple[tuple, tuple]]] = {}
+        for qi, spec in enumerate(specs):
+            ns = f"q{qi}."
+            rels: List[_BatchRelation] = []
+            if spec.host is not None:
+                pim_stage, host = E.split_query(spec)
+                for rel_name, pred, cols in pim_stage:
+                    rel = self.relations[rel_name]
+                    c = Compiler(rel, namespace=ns)
+                    mask_reg = (c.compile_filter(pred, with_transform=False)
+                                if pred is not None else c.compile_scan_all())
+                    mat_reg = c.compile_materialize(mask_reg, cols)
+                    progs = rel_programs.setdefault(rel_name, [])
+                    rels.append(_BatchRelation(rel_name, pred, c, mask_reg,
+                                               [], mat_reg, len(progs)))
+                    progs.append((tuple(c.program), ()))
+                works.append(_BatchQuery(spec, host, rels))
+            else:
+                for rel_name, pred in spec.filters.items():
+                    rel = self.relations[rel_name]
+                    c, mask_reg, group_regs = self._compile_relation(
+                        rel, spec, pred, namespace=ns)
+                    progs = rel_programs.setdefault(rel_name, [])
+                    rels.append(_BatchRelation(rel_name, pred, c, mask_reg,
+                                               group_regs, None, len(progs)))
+                    progs.append((tuple(c.program), (mask_reg,)))
+                works.append(_BatchQuery(spec, None, rels))
+        return works, rel_programs
+
+    def dispatch_batch(self, specs: Sequence[Q.QuerySpec]
+                       ) -> Tuple[List[PendingQuery], Dict[str, object]]:
+        """Device stage of a FUSED batch: the specs are compiled on their
+        own (canonical, namespaced), grouped by relation, linked into ONE
+        SSA program per relation (``core.program.link_programs``) and run
+        as one program launch per relation, plus one materialize launch
+        per ``Materialize``. Each query's outputs are demuxed through the
+        linked program's ``query_slots``.
+
+        Host stages do not run here: each returned :class:`PendingQuery`
+        either carries its complete :class:`QueryResult` (mask/aggregate
+        specs) or holds the demuxed host tables for :meth:`finish_query`.
+        Linking is deterministic, so a recurring batch records the same
+        linked program and hits the tape cache. The batch counters
+        (launches, plane reads, dedup, linked keys, walls) land in
+        ``last_batch_stats`` and are returned."""
+        t_all = time.perf_counter()
+        works, rel_programs = self._compile_batch(specs)
+
+        compiled: Dict[str, prog.CompiledProgram] = {}
+        results: Dict[str, prog.ProgramResult] = {}
+        linked: Dict[str, prog.LinkedProgram] = {}
+        pim_wall: Dict[str, float] = {}
+        for rel_name, programs in rel_programs.items():
+            rel = self.relations[rel_name]
+            lp = prog.link_programs(programs, relation=rel)
+            cp = prog.compile_program(rel, lp.instrs,
+                                      mask_outputs=lp.mask_outputs,
+                                      query_slots=lp.slots)
+            t0 = time.perf_counter()
+            res = prog.run_program(cp, rel)
+            pim_wall[rel_name] = time.perf_counter() - t0
+            compiled[rel_name], results[rel_name] = cp, res
+            linked[rel_name] = lp
+
+        # Each relation's one launch is shared: attribute its time evenly
+        # to the queries that read it.
+        n_users: Dict[str, int] = {}
+        for w in works:
+            for br in w.rels:
+                n_users[br.rel_name] = n_users.get(br.rel_name, 0) + 1
+        share = {r: pim_wall[r] / n_users[r] for r in pim_wall}
+
+        stats: Dict[str, object] = {
+            "n_queries": len(works),
+            "n_dispatches": len(rel_programs),
+            "pim_s": sum(pim_wall.values()),
+            "demux_s": 0.0,
+            "host_s": 0.0,
+            "wall_s": 0.0,
+            "relations": {
+                r: {"n_programs": len(rel_programs[r]),
+                    "instrs_unlinked": linked[r].n_instrs_unlinked,
+                    "instrs_linked": len(linked[r].instrs),
+                    "instrs_deduped": linked[r].n_deduped,
+                    "plane_reads": compiled[r].total_plane_reads,
+                    "agg_plane_reads": compiled[r].agg_plane_reads,
+                    "source_plane_reads": compiled[r].source_plane_reads,
+                    "linked_key": linked[r].cache_key,
+                    "pim_s": pim_wall[r]}
+                for r in rel_programs},
+        }
+
+        pendings: List[PendingQuery] = []
+        demux_s = 0.0
+        for w in works:
+            t0 = time.perf_counter()
+            if w.host is not None:
+                materialized: Dict[str, E.HostTable] = {}
+                mat_rows: Dict[str, int] = {}
+                pim_s = 0.0
+                for br in w.rels:
+                    view = results[br.rel_name].query(br.slot)
+                    vals = view.materialized(br.mat_reg)
+                    materialized[br.rel_name] = E.HostTable(
+                        {a: np.asarray(v, np.int64)
+                         for a, v in vals.items()})
+                    mat_rows[br.rel_name] = materialized[br.rel_name].n_rows
+                    pim_s += share[br.rel_name]
+                pendings.append(PendingQuery(
+                    w.spec, Engine.FUSED, host=w.host,
+                    materialized=materialized, mat_rows=mat_rows,
+                    pim_s=pim_s, batch_stats=stats))
+            else:
+                rel_runs: Dict[str, RelationRun] = {}
+                aggs: Dict[str, Dict[str, object]] = {}
+                wall = 0.0
+                for br in w.rels:
+                    view = results[br.rel_name].query(br.slot)
+                    mask = view.mask(br.mask_reg)
+                    if br.group_regs:
+                        aggs.update(self._finalize_aggs(
+                            br.group_regs, view.scalar, view.scalar))
+                    rel = self.relations[br.rel_name]
+                    rel_runs[br.rel_name] = self._relation_run(
+                        rel, br.rel_name, w.spec, br.pred, mask,
+                        list(br.compiler.program),
+                        cp=compiled[br.rel_name])
+                    wall += share[br.rel_name]
+                res = QueryResult(
+                    spec=w.spec, engine=Engine.FUSED, aggregates=aggs,
+                    relations=rel_runs, pim_s=wall,
+                    wall_s=wall + time.perf_counter() - t0,
+                    batch_stats=stats)
+                pendings.append(PendingQuery(w.spec, Engine.FUSED,
+                                             result=res, pim_s=wall,
+                                             batch_stats=stats))
+            demux_s += time.perf_counter() - t0
+
+        stats["demux_s"] = demux_s
+        stats["wall_s"] = time.perf_counter() - t_all
+        self.last_batch_stats = stats
+        return pendings, stats
+
+    def finish_query(self, pending: PendingQuery) -> QueryResult:
+        """Host stage of one :meth:`dispatch_batch` query; a mask/aggregate
+        spec's result is complete already. Thread-safe: several threads may
+        finish queries of one batch at once."""
+        if pending.result is not None:
+            return pending.result
+        t0 = time.perf_counter()
+        table = E.run_host_stage(
+            pending.host, E.ExecContext(pending.materialized, self.tables))
+        host_s = time.perf_counter() - t0
+        if pending.batch_stats is not None:
+            with self._stats_lock:
+                pending.batch_stats["host_s"] = (
+                    pending.batch_stats.get("host_s", 0.0) + host_s)
+        return QueryResult.from_table(
+            pending.spec, table, pending.pim_s, host_s, pending.mat_rows,
+            engine=pending.engine, batch_stats=pending.batch_stats)
+
     # -- baseline (numpy scan oracle) ----------------------------------------
     def _execute_baseline(self, spec: Q.QuerySpec) -> QueryResult:
         """The paper's §5.5 in-memory column-store scan. For a spec with a
@@ -432,6 +682,38 @@ class PimDatabase:
         database, ``{}``)."""
         return cost_report(run, sf_scale, hw, relations=self.relations,
                            dml_row_ops={})
+
+    # -- deprecated shims ----------------------------------------------------
+    def run_pim(self, spec: Q.QuerySpec, fused: bool = True) -> QueryResult:
+        """Deprecated: use ``execute(spec.filter_only(), engine=...)``."""
+        warnings.warn(
+            "PimDatabase.run_pim is deprecated; use "
+            "execute(spec.filter_only(), engine=Engine.FUSED/EAGER)",
+            DeprecationWarning, stacklevel=2)
+        return self.execute(spec.filter_only(), engine=Engine.coerce(fused))
+
+    def run_query(self, spec: Q.QuerySpec, fused: bool = True
+                  ) -> QueryResult:
+        """Deprecated: use ``execute(spec, engine=...)``."""
+        warnings.warn(
+            "PimDatabase.run_query is deprecated; use "
+            "execute(spec, engine=Engine.FUSED/EAGER)",
+            DeprecationWarning, stacklevel=2)
+        return self.execute(spec, engine=Engine.coerce(fused))
+
+    def run_queries(self, specs, fused: bool = True) -> List[QueryResult]:
+        """Deprecated: use ``execute(list_of_specs, engine=...)``."""
+        warnings.warn(
+            "PimDatabase.run_queries is deprecated; use "
+            "execute(specs, engine=Engine.FUSED/EAGER)",
+            DeprecationWarning, stacklevel=2)
+        return self.execute(list(specs), engine=Engine.coerce(fused))
+
+    def run_baseline(self, spec: Q.QuerySpec) -> QueryResult:
+        """The numpy column-scan oracle at the spec's filter scope, equal
+        to ``execute(spec.filter_only(), engine=Engine.ORACLE)`` (not
+        deprecated: it is the oracle results are held to)."""
+        return self._execute_baseline(spec.filter_only())
 
 
 def _empty_batch_stats() -> Dict[str, object]:

@@ -19,13 +19,13 @@ version on a CPU tensor. The same library holds ``filter_aggregate``'s
 kernel; :func:`bind` sets up all four launchers.
 
 Each kernel is bound by bytes (every plane word read once, every mask
-word written once). ``eq_imm`` and ``cmp_imm`` put all of a thread's
-plane loads in flight before folding (stacks of up to 32 planes at once,
-wider ones 16 at a time, ``cmp_imm``'s from the top plane down), fold the
-immediate without a branch, and take two words a thread where W is even
-and the pointers 8-byte aligned, in one wave of the card's resident
-blocks; ``range_mask`` keeps the first port's one word a thread and
-runtime plane loop. Their times on an H100: PERF.md §6.
+word written once). All three put all of a thread's plane loads in
+flight before folding (stacks of up to 32 planes at once, wider ones 16
+at a time, ``cmp_imm``'s and ``range_mask``'s from the top plane down),
+fold the immediate without a branch (``range_mask`` folds each loaded
+chunk against ``lo`` and against ``hi``), and take two words a thread
+where W is even and the pointers 8-byte aligned, in one wave of the
+card's resident blocks. Their times on an H100: PERF.md §6.
 """
 from __future__ import annotations
 

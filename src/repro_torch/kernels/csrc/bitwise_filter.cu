@@ -26,24 +26,25 @@
 //
 // The immediate is a runtime argument (its low n_bits bits, 64 to a
 // word), so one build serves every immediate; bits at or above n_bits
-// are ignored, as the Pallas kernels (which unroll on the immediate at
-// trace time) ignore them.
+// are ignored, as the Pallas kernels (unrolled on the immediate) do.
 //
-// eq_imm, cmp_imm and filter_sum (redesigned). The first port gave each
-// thread one word and walked a runtime n_bits loop 4 planes at a time:
-// at most 4 loads in flight per thread, dependent round trips to memory
-// before the store, a branch on the immediate's bit per plane. Now:
+// eq_imm, cmp_imm, range_mask and filter_sum (redesigned). The first
+// port gave each thread one word and walked a runtime n_bits loop 4
+// planes at a time: at most 4 loads in flight per thread, dependent round
+// trips to memory before the store, a branch on the immediate's bit per
+// plane. Now:
 //  - a thread issues the loads of all its planes before folding any:
-//    eq_imm and cmp_imm are instantiated for stacks of <= 8, <= 16 and
-//    <= 32 planes (path d hands eq_imm 1-8 bit stacks, cmp_imm 4-21) and
-//    read wider stacks 16 planes at a time, up to kMaxBits; cmp_imm's
-//    chunks run from the top plane down, the top chunk padded past
-//    n_bits with planes that read as 0 against 0 bits, which leave the
-//    chain alone;
+//    eq_imm, cmp_imm and range_mask are instantiated for stacks of <= 8,
+//    <= 16 and <= 32 planes (path d hands eq_imm 1-8 bit stacks, cmp_imm
+//    4-21) and read wider stacks 16 planes at a time, up to kMaxBits;
+//    cmp_imm's and range_mask's chunks run from the top plane down, the
+//    top chunk padded past n_bits with planes that read as 0 against 0
+//    bits, which leave the chain alone;
 //  - the immediate folds without a branch, m = 0 - bit b:
 //    eq_imm acc &= ~(v ^ m); cmp_imm lt |= eq & ~v & m, eq &= ~(v ^ m)
-//    (cmp_chain, which range_mask's redesign can reuse). On an H100 the
-//    branchy step with the same loads was no faster, so it is not kept;
+//    (cmp_fold); range_mask folds each loaded chunk twice, against lo and
+//    against hi, and writes ~lt(lo) & lt(hi). On an H100 the branchy
+//    step with the same loads was no faster, so it is not kept;
 //  - the grid is at most what the card holds at once (SM count x resident
 //    blocks, from the occupancy API, cached per device), grid-striding
 //    past it, in 256-thread blocks, two consecutive words a thread in one
@@ -64,24 +65,19 @@
 //    not depend on the order the blocks add in.
 // Measured (chip_smoke.py on an H100 80GB HBM3, 700 W, PERF.md §6): a
 // launch costs the floor plus the plane bytes at about 2 TB/s after the
-// method's write flush (about 2.6 TB/s after a read flush: the dirty
-// lines the write flush leaves in L2 are written back while the kernel
-// reads). cmp_imm at (12, 188,416) 10.7 us against a 3.2 us bound, as
-// fast as the first port's (within the spread, also over path d's 50
-// operands): the floor and the bytes set it, not the design. filter_sum
-// at (12 + 24 + 1, 188,416) 22 us against the first port's 38 us.
-//
-// range_mask keeps the first port's design: one thread per word, a
-// runtime loop over the planes (unroll 4), both chains branching on the
-// immediates' bits (range_word, cmp_step), a grid of ceil(W / 256)
-// blocks up to kMaxBlocks, grid-striding past it.
+// method's write flush (2.6 TB/s after a read flush, which leaves no
+// dirty lines in L2 to write back while the kernel reads). At (12,
+// 188,416): cmp_imm 10.7 us against a 3.2 us bound, as fast as the first
+// port's; range_mask 11.0-11.2 us against the first port's 10.5 in the same
+// call (eq_imm, the same bytes and one fold, 10.1 us: the two folds of
+// the padded chunk are the likely cost); filter_sum (12 + 24 + 1 planes)
+// 22 us against 38 us.
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
 
 constexpr int kThreads = 256;              // threads per block
 constexpr int kMaxBits = 1024;             // the widest plane stack taken
-constexpr int kMaxBlocks = 4096;           // range_mask grid-strides past it
 constexpr int kAggChunk = 8;               // filter_sum's aggregate planes
                                            // loaded at once
 constexpr unsigned kFull = 0xffffffffu;
@@ -100,33 +96,6 @@ template <int NB>
 __device__ __forceinline__ uint32_t imm_chunk(const ImmBits& imm, int b0) {
   static_assert(NB <= 32 && 64 % NB == 0, "a chunk lies in one word");
   return (uint32_t)(imm.w[b0 >> 6] >> (b0 & 63));
-}
-
-// One MSB-first comparator step: plane word v against immediate bit `set`.
-__device__ __forceinline__ void cmp_step(bool set, uint32_t v, uint32_t& lt,
-                                         uint32_t& eq) {
-  if (set) {
-    lt |= eq & ~v;
-    eq &= v;
-  } else {
-    eq &= ~v;
-  }
-}
-
-// lo <= v < hi for the 32 records of word w: both chains over one load of
-// each plane.
-__device__ __forceinline__ uint32_t range_word(
-    const uint32_t* __restrict__ planes, int n_bits, long long n_words,
-    long long w, const ImmBits& lo, const ImmBits& hi) {
-  uint32_t lt_lo = 0u, eq_lo = 0xffffffffu;
-  uint32_t lt_hi = 0u, eq_hi = 0xffffffffu;
-#pragma unroll 4
-  for (int b = n_bits - 1; b >= 0; --b) {
-    const uint32_t v = planes[(long long)b * n_words + w];
-    cmp_step(imm_bit(lo, b), v, lt_lo, eq_lo);
-    cmp_step(imm_bit(hi, b), v, lt_hi, eq_hi);
-  }
-  return ~lt_lo & lt_hi;
 }
 
 // K consecutive words a thread: one 4K-byte load per plane.
@@ -155,8 +124,9 @@ __device__ __forceinline__ void load_planes(
 
 // The MSB-first comparator over the NB planes of v, top plane first,
 // without a branch: with m = 0 - immediate bit (the low NB bits of
-// `bits`), lt |= eq & ~v & m; eq &= ~(v ^ m), which is cmp_step for
-// either bit. A plane read as 0 against a 0 bit leaves both alone.
+// `bits`), lt |= eq & ~v & m; eq &= ~(v ^ m): for a set bit lt |= eq &
+// ~v, eq &= v; for a clear one eq &= ~v. A 0 plane against a 0 bit
+// leaves both alone.
 template <int NB, int K>
 __device__ __forceinline__ void cmp_fold(const uint32_t (&v)[NB][K],
                                          uint32_t bits, uint32_t (&lt)[K],
@@ -245,14 +215,37 @@ cmp_imm_kernel(const uint32_t* __restrict__ planes, int n_bits,
   }
 }
 
+// range_mask, K words a thread: each chunk of NB planes, from the top
+// down, is loaded once (all loads in flight) and folded against lo and hi.
+template <int NB, int K>
 __global__ void __launch_bounds__(kThreads)
 range_mask_kernel(const uint32_t* __restrict__ planes, int n_bits,
                   long long n_words, const __grid_constant__ ImmBits lo,
                   const __grid_constant__ ImmBits hi,
                   uint32_t* __restrict__ out) {
-  for (long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
-       w < n_words; w += (long long)gridDim.x * kThreads)
-    out[w] = range_word(planes, n_bits, n_words, w, lo, hi);
+  using Vec = typename WordsOf<K>::T;
+  const long long n_groups = n_words / K;
+  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+       g < n_groups; g += (long long)gridDim.x * kThreads) {
+    uint32_t lt_lo[K], eq_lo[K], lt_hi[K], eq_hi[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lt_lo[k] = lt_hi[k] = 0u;
+      eq_lo[k] = eq_hi[k] = ~0u;
+    }
+    for (int b0 = (n_bits - 1) / NB * NB; b0 >= 0; b0 -= NB) {
+      uint32_t v[NB][K];
+      load_planes<NB, K>(planes, b0, n_bits, n_words, g, v);
+      cmp_fold<NB, K>(v, imm_chunk<NB>(lo, b0), lt_lo, eq_lo);
+      cmp_fold<NB, K>(v, imm_chunk<NB>(hi, b0), lt_hi, eq_hi);
+    }
+    uint32_t m[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) m[k] = ~lt_lo[k] & lt_hi[k];
+    Vec q;
+    memcpy(&q, m, sizeof q);
+    reinterpret_cast<Vec*>(out)[g] = q;
+  }
 }
 
 // filter_sum over NB-plane filter chunks, K words a thread. `state` is
@@ -358,15 +351,6 @@ static bool load_imm(const unsigned long long* words, int n_bits,
   return true;
 }
 
-static long long blocks_over(long long n_words) {
-  return (n_words + kThreads - 1) / kThreads;
-}
-
-static unsigned n_blocks(long long n_words) {
-  const long long b = blocks_over(n_words);
-  return (unsigned)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
 // A grid of `need` blocks, cut to what the card holds of `kernel` at once
 // (SM count x its resident blocks per SM with `smem` bytes of dynamic
 // shared memory, from the occupancy API), so the stack is read in one
@@ -418,6 +402,18 @@ static void cmp_imm_run(const uint32_t* planes, int n_bits, long long n_words,
       (const void*)cmp_imm_kernel<NB, K>, 0, most, groups_over(n_words, K));
   cmp_imm_kernel<NB, K><<<grid, kThreads, 0, stream>>>(planes, n_bits,
                                                        n_words, imm, lt, eq);
+}
+
+template <int NB, int K>
+static void range_mask_run(const uint32_t* planes, int n_bits,
+                           long long n_words, const ImmBits& lo,
+                           const ImmBits& hi, uint32_t* out,
+                           cudaStream_t stream) {
+  static int most[16];
+  const unsigned grid = resident_grid((const void*)range_mask_kernel<NB, K>,
+                                      0, most, groups_over(n_words, K));
+  range_mask_kernel<NB, K><<<grid, kThreads, 0, stream>>>(
+      planes, n_bits, n_words, lo, hi, out);
 }
 
 struct SumArgs {
@@ -501,9 +497,13 @@ extern "C" int range_mask_launch(const void* planes, int n_bits,
   ImmBits lb, hb;
   if (!load_imm(lo, n_bits, &lb) || !load_imm(hi, n_bits, &hb))
     return (int)cudaErrorInvalidValue;
-  range_mask_kernel<<<n_blocks(n_words), kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      (const uint32_t*)planes, n_bits, n_words, lb, hb, (uint32_t*)out);
+  const uint32_t* p = (const uint32_t*)planes;
+  uint32_t* o = (uint32_t*)out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (two_words(n_words, p, o, o))
+    BY_WIDTH(range_mask_run, n_bits, 2, p, n_bits, n_words, lb, hb, o, s);
+  else
+    BY_WIDTH(range_mask_run, n_bits, 1, p, n_bits, n_words, lb, hb, o, s);
   return (int)cudaGetLastError();
 }
 

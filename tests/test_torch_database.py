@@ -4,8 +4,7 @@ All 19 TPC-H specs (``spec.filter_only()``) through the port's
 ``PimDatabase.execute`` on the CPU (the kernel's plain version) equal the
 reference's FUSED ``execute`` and the port's ORACLE — every mask and
 aggregate exactly. The guards: the port imports neither ``jax`` nor
-``repro``; the default device is CUDA and never silently the CPU; what is
-not ported yet raises instead of running anything else.
+``repro``; the default device is CUDA and never silently the CPU.
 """
 import ast
 from pathlib import Path
@@ -128,7 +127,9 @@ def test_default_device_is_cuda(tables):
 def test_unported_scopes_raise(port_db):
     """Every single spec now runs, on FUSED (here) and EAGER
     (``test_torch_eager.py``) alike: the host-stage specs end to end,
-    equal to the ORACLE's rows. Only a list of specs still raises (A7)."""
+    equal to the ORACLE's rows. A list of specs no longer raises: it runs
+    as one linked batch whose results equal the specs run one at a time
+    (``test_torch_fusion.py`` holds batches against the reference)."""
     host_specs = [q for q in tq.all_queries() if q.host is not None]
     assert {q.name for q in host_specs} == {"Q3", "Q5", "Q10", "Q12", "Q14",
                                             "Q19"}
@@ -138,8 +139,11 @@ def test_unported_scopes_raise(port_db):
         assert fused.columns == oracle.columns == spec.host.output
         assert fused.rows == oracle.rows, spec.name
         assert fused.materialized_rows == oracle.materialized_rows
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_db.execute([tq.get_query("Q6"), tq.get_query("Q1")])
+    specs = [tq.get_query("Q6"), tq.get_query("Q1")]
+    batch = port_db.execute(specs)
+    assert port_db.last_batch_stats["n_dispatches"] == 1
+    for spec, got in zip(specs, batch):
+        assert got.aggregates == port_db.execute(spec).aggregates
 
 
 # --------------------------------------------------------------------------

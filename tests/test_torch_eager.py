@@ -280,8 +280,11 @@ def test_engine_coerce_and_unported_writes(port_db):
         e.execute(tisa.ValidClear(dest="__valid__", rows=(0,)))
     e.execute(tisa.SetReset(dest="all", value=1, n_bits=1))
     assert e.count("all") == rel.n_records
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_db.execute([tq.get_query("Q6")], engine="eager")
+    # A list on EAGER runs spec by spec (linking is FUSED's).
+    got, = port_db.execute([tq.get_query("Q6")], engine="eager")
+    assert got.engine is tdb.Engine.EAGER
+    assert got.aggregates == port_db.execute(tq.get_query("Q6"),
+                                             engine="eager").aggregates
 
 
 def test_scan_all_materialize_and_readout(port_db):

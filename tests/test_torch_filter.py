@@ -13,10 +13,14 @@ card the kernels equal the plain versions (``cuda`` marker).
 Numpy models of ``csrc/bitwise_filter.cu``: ``cmp_imm``'s branch-free,
 chunked MSB-first chain equals the Pallas ``cmp_imm`` in interpret mode
 (every immediate at widths 1-8, random, negative and too-wide immediates
-across chunk boundaries); ``filter_sum``'s persistent blocks, int32 block
-counts and self-zeroing int64 state equal the reference's popcounts and
-leave the state zero. ``filter_sum`` refuses, before any build, a stack
-whose int32 block counts could reach 2**31.
+across chunk boundaries); ``range_mask``'s lanes (chunks of 8, 16 and 32
+planes from the top down, zero-padded, one or two words a thread, each
+chunk folded against both immediates) equal the Pallas ``range_mask``
+at widths 1-33, empty, full and too-wide ranges; ``filter_sum``'s
+persistent blocks, int32 block counts and self-zeroing int64 state equal
+the reference's popcounts and leave the state zero. ``filter_sum``
+refuses, before any build, a stack whose int32 block counts could reach
+2**31.
 """
 import numpy as np
 import pytest
@@ -341,6 +345,82 @@ def test_cmp_chain_model_matches_pallas_across_chunks(bits):
             np.testing.assert_array_equal(g, _u32(p))
 
 
+def _range_mask_model(planes, lo, hi, nb, k, grid=3):
+    """``range_mask_kernel<nb, k>`` over ``grid`` blocks of 256 threads,
+    grid-striding over groups of ``k`` words: each thread loads every
+    chunk of ``nb`` planes from the top chunk down (zero planes past
+    ``n_bits``) and folds it with the branch-free step twice, against
+    ``imm_chunk(lo)`` and ``imm_chunk(hi)``, then writes ``~lt(lo) &
+    lt(hi)`` for its group. Every word must be written exactly once."""
+    threads = 256
+    n_bits, w = planes.shape
+    assert w % k == 0
+    lo_w, hi_w = _imm_bits(lo, n_bits), _imm_bits(hi, n_bits)
+    out = np.zeros(w, np.uint32)
+    writes = np.zeros(w, np.int64)
+    for blk in range(grid):
+        for g0 in range(blk * threads, w // k, grid * threads):
+            words = (np.arange(g0, min(g0 + threads, w // k))[:, None] * k
+                     + np.arange(k)).reshape(-1)
+            zero = np.zeros(words.size, np.uint32)
+            lt = [zero.copy(), zero.copy()]
+            eq = [~zero, ~zero]
+            for b0 in range((n_bits - 1) // nb * nb, -1, -nb):
+                v = [planes[b0 + i, words] if b0 + i < n_bits else zero
+                     for i in range(nb)]
+                for c, imm_w in enumerate((lo_w, hi_w)):
+                    bits = (imm_w[b0 // 64] >> (b0 % 64)) & 0xFFFFFFFF
+                    for i in range(nb - 1, -1, -1):
+                        m = np.uint32(-((bits >> i) & 1) & 0xFFFFFFFF)
+                        lt[c] |= eq[c] & ~v[i] & m
+                        eq[c] &= ~(v[i] ^ m)
+            out[words] = ~lt[0] & lt[1]
+            writes[words] += 1
+    assert (writes == 1).all()
+    return out
+
+
+RANGE_BITS = [1, 8, 9, 16, 17, 21, 32, 33]
+
+
+def _range_cases(n_bits, rng):
+    """``(lo, hi)`` pairs: a random range; ``lo >= hi`` (empty); ``lo = 0``
+    with ``hi = 1 << n_bits`` (its bits all at or above the width, so it
+    reads as 0: empty); immediates with bits above ``n_bits``; then ``lo =
+    hi``, a full-width ``hi`` and a negative ``lo``."""
+    top = (1 << n_bits) - 1
+    lo = int(rng.integers(0, top + 1, dtype=np.uint64))
+    hi = int(rng.integers(lo, top + 1, dtype=np.uint64))
+    return [(lo, hi), (hi, lo), (0, 1 << n_bits),
+            (lo | (1 << n_bits), hi | (5 << (n_bits + 2))),
+            (lo, lo), (0, top), (-3, top)]
+
+
+@pytest.mark.parametrize("n_bits", RANGE_BITS)
+def test_range_mask_model_matches_pallas_every_lane_shape(n_bits):
+    """The model of every instance (``nb`` 8, 16, 32; ``k`` 1 over an odd
+    W, 2 over the even W below it) equals the Pallas ``range_mask`` in
+    interpret mode (the first four cases of :func:`_range_cases`; each
+    immediate pair is a trace of its own) and the plain version (all of
+    them) bit for bit."""
+    jnp, rbf, _ = _jax()
+    rng = np.random.default_rng(100 + n_bits)
+    w = 1031                                  # odd: one word a thread
+    raw = _raw(rng, n_bits, w)
+    x = jnp.asarray(raw)
+    for j, (lo, hi) in enumerate(_range_cases(n_bits, rng)):
+        want = _u32(kbf.range_mask_torch(_i32(raw), lo, hi))
+        if j < 4:
+            np.testing.assert_array_equal(
+                want, np.asarray(rbf.range_mask(x, lo, hi, interpret=True)))
+        for nb in (8, 16, 32):
+            np.testing.assert_array_equal(
+                _range_mask_model(raw, lo, hi, nb, 1), want, (nb, lo, hi))
+            np.testing.assert_array_equal(
+                _range_mask_model(raw[:, :w - 1], lo, hi, nb, 2),
+                want[:w - 1], (nb, lo, hi))
+
+
 def _filter_sum_model(fp, ap, valid, lo, hi, grid, k, state):
     """``filter_sum_kernel`` over ``grid`` persistent blocks of 256
     threads, ``k`` words a thread, the filter planes in chunks of 8 (a
@@ -643,3 +723,23 @@ def test_filter_sum_is_one_kernel_launch():
              if e.device_type == DeviceType.CUDA
              and not e.name.startswith(("Memcpy", "Memset"))]
     assert len(names) == 1 and "filter_sum_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,w", [(b, 100_003) for b in RANGE_BITS]
+                         + [(12, 188_416)])
+def test_range_mask_matches_plain_on_card(n_bits, w):
+    """range_mask == range_mask_torch on the card at the model's cases, at
+    W and W - 1 (one and two words a thread) and on a view that is 4- but
+    not 8-byte aligned (one word a thread); (12, 188,416) is path e's
+    ``l_shipdate`` shape at SF 1."""
+    _needs_card()
+    rng = np.random.default_rng(n_bits * 7 + w)
+    raw = _raw(rng, n_bits, w)
+    for x in (_i32(raw), _i32(raw[:, :w - 1])):
+        for xc in (x.cuda(), _misaligned(x)):
+            for lo, hi in _range_cases(n_bits, rng):
+                assert torch.equal(kbf.range_mask(xc, lo, hi).cpu(),
+                                   kbf.range_mask_torch(x, lo, hi)), \
+                    (x.shape, xc.data_ptr() % 8, lo, hi)
+    torch.cuda.synchronize()
