@@ -41,9 +41,10 @@ Phases (any failure exits non-zero before the last line):
    1,100,000 (beyond one wave of its persistent grid), with an aligned
    and a misaligned valid plane, from
    four host threads on one stream and on two streams; one warm
-   ``filter_sum`` call must run exactly one CUDA kernel (torch.profiler's
-   device events). The word counts there are not a multiple of any
-   kernel's block.
+   ``filter_sum`` call must enqueue exactly one CUDA kernel, counted as
+   the kernel nodes of the call captured into a CUDA graph (no CUPTI; a
+   capture that fails stops the run with the method named). The word
+   counts there are not a multiple of any kernel's block.
 4. Main paths, TPC-H SF 1, each driven with the launch counts set to 0
    just before it and read just after:
    a. ``PimDatabase(tables).execute(spec)`` for the 19 ``filter_only()``
@@ -80,6 +81,24 @@ Phases (any failure exits non-zero before the last line):
       the singles' sum, deduped instructions, the linked tapes' card time
       (each kernel == plain) against the single programs', and the
       batch's warm execute time against the summed execute_ms.
+   g. the HTAP stream of ``benchmarks/bench_kernels.py::bench_htap_stream``
+      on a fresh ``PimDatabase`` over a.'s tables, lineitem resident on
+      the card: first the static verifier's ms on Q1's cold compile; then
+      6 rounds, each one ``db.apply([Insert(64 rows drawn by
+      default_rng(7)), Delete(the previous round's rows)])`` and Q1 and Q6
+      ``filter_only()`` on FUSED, Q6 equal to the mutable-table oracle and
+      Q1 to ORACLE, no tape-cache miss after round 1; rotate's busiest row
+      at most half a first-fit replay's; then an ``Update`` of l_quantity
+      under Q6's predicate, an ``Insert`` of 32,768 rows (past the spare
+      slots: the planes grow one tile), Q6 and Q14 on FUSED and Q6 on
+      EAGER against ORACLE, kernels == plain at those shapes, ``Compact``
+      and Q6 once more. ``db.apply`` launches nothing and keeps every
+      plane on the card; ``fused_program`` launches once per relation
+      program, ``materialize`` once per ``Materialize``, the eager Q6 only
+      ``eq_imm``/``cmp_imm``. It prints each ``db.apply``'s wall ms, bytes
+      moved to the card, instructions and cells written, the wear and the
+      cost report's bytes and endurance; then the lint sweep
+      (``repro_torch.analysis.lint``) runs on the card at SF 0.002.
    Then every kernel against its plain version bit for bit at those SF 1
    shapes, and the times: first the timing floor (an empty kernel timed
    the same way, after a 64 MB write flush, a read flush and none); per
@@ -99,8 +118,8 @@ Phases (any failure exits non-zero before the last line):
    found equal): the paper's analytical model, not a measurement of the
    card.
 6. One ``{"kernels": [...]}`` JSON line (eight kernels; ``fused_program``
-   over the programs of paths a, b and f), then ``{"ok": true, ...}``
-   last.
+   over the programs of paths a, b, f and g; launches of paths a-g), then
+   ``{"ok": true, ...}`` last.
 
 Seeds fix the data; nothing is read from outside the checkout.
 """
@@ -1121,7 +1140,7 @@ def phase_filter_kernels_vs_plain() -> dict:
     fp, ap, valid = random_words(gc, (12, 188_416), (24, 188_416),
                                  (188_416,))
     check_filter_sum_threads(fp, ap, valid, 5, 3000)
-    kernels = filter_sum_kernels(fp, ap, valid, 5, 3000)
+    kernels, nodes = filter_sum_kernels(fp, ap, valid, 5, 3000)
     print(f"phase 3 ok: eq_imm/cmp_imm/range_mask == plain on {n_ops} "
           f"eager operands at SF {SMOKE_SF} (widest {widest} bits) and "
           f"widths {sorted(set(FILTER_WIDTHS) | {widest})}; eq_imm at W % 4 "
@@ -1129,8 +1148,9 @@ def phase_filter_kernels_vs_plain() -> dict:
           f"at widths {CMP_WIDTHS}; filter_sum == plain at (nf, na) "
           f"{list(FILTER_SUM_SHAPES)} x W {list(FILTER_SUM_WORDS)}, "
           f"aligned and not, from 4 threads on "
-          f"one stream and on 2 streams; one warm filter_sum call runs "
-          f"{len(kernels)} CUDA kernel: {kernels}", flush=True)
+          f"one stream and on 2 streams; one warm filter_sum call enqueues "
+          f"{kernels} CUDA kernel ({nodes} graph node; CUDA graph capture)",
+          flush=True)
     return {"filter": worst, "filter_sum": sum_worst}
 
 
@@ -1176,24 +1196,25 @@ def check_filter_sum_threads(fp, ap, valid, lo, hi, n_threads=4,
                  "two streams, != plain")
 
 
-def filter_sum_kernels(fp, ap, valid, lo, hi) -> list:
-    """The CUDA kernels one warm filter_sum call runs, by name, from
-    torch.profiler's device events; the run fails unless there is exactly
-    one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def filter_sum_kernels(fp, ap, valid, lo, hi) -> tuple[int, int]:
+    """``(kernel nodes, all nodes)`` of one warm filter_sum call captured
+    into a CUDA graph (``kernels.graph_count``: no CUPTI, so the count
+    cannot come back empty by chance); the run fails unless the call
+    enqueues exactly one kernel and the wrapper counts one launch, or, with
+    the method named, when the capture fails."""
     from repro_torch.kernels import filter_aggregate as kfa
-    kfa.filter_sum(fp, ap, valid, lo, hi)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        kfa.filter_sum(fp, ap, valid, lo, hi)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and not e.name.startswith(("Memcpy", "Memset"))]
-    if len(names) != 1:
-        fail(f"one filter_sum call ran {len(names)} CUDA kernels: {names}")
-    return names
+    from repro_torch.kernels import graph_count
+    before = kfa.launches
+    try:
+        kernels, nodes = graph_count.kernels_enqueued(
+            lambda: kfa.filter_sum(fp, ap, valid, lo, hi))
+    except RuntimeError as e:
+        fail(f"filter_sum kernel count: {e}")
+    if kernels != 1 or kfa.launches != before + 2:
+        fail(f"one warm filter_sum call enqueued {kernels} CUDA kernels "
+             f"({nodes} graph nodes, {kfa.launches - before - 1} counted "
+             f"launches), counted by {graph_count.METHOD}")
+    return kernels, nodes
 
 
 def phase_eager_path(db, fused_results, peaks, flush, floor):
@@ -1515,6 +1536,302 @@ def phase_linked_batches(db, path_a, path_b, flush):
     return record, mat_launches
 
 
+HTAP_ROUNDS, HTAP_BATCH, HTAP_GROW = 6, 64, 32_768
+
+
+def verify_compile_timing(db) -> None:
+    """The static verifier's share of Q1's cold compile at SF 1: the tape
+    cache emptied, one ``compile_program`` (verifier and tape recording),
+    then ``verify_compile`` alone on the same plans (median of 5)."""
+    from repro_torch.analysis import passes
+    from repro_torch.core import program as prog
+    from repro_torch.db import queries as Q
+    spec = Q.get_query("Q1")
+    rel = db.relations["lineitem"]
+    c, mask_reg, _ = db._compile_relation(rel, spec, spec.filters["lineitem"])
+    prog._FN_CACHE.clear()
+    t0 = time.perf_counter()
+    cp = prog.compile_program(rel, c.program, mask_outputs=(mask_reg,))
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    times, diags = [], ()
+    for _ in range(5):
+        t0 = time.perf_counter()
+        diags = passes.verify_compile(cp.instrs, rel, cp.analysis, cp.plan,
+                                      cp.arith, frozenset((mask_reg,)),
+                                      "fused")
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"verify_compile on Q1's lineitem program at SF {MAIN_SF}: "
+          f"{statistics.median(times):.3f} ms (median of 5) of a cold "
+          f"compile_program of {cold_ms:.3f} ms; n_instrs {len(cp.instrs)}, "
+          f"n_diags {len(diags)}", flush=True)
+
+
+def htap_apply(db, label, mutations, rows, profile=False) -> None:
+    """One ``db.apply`` on the card, timed to a synchronisation: its wall
+    ms, the bytes the write primitives moved to the card, and each
+    mutation's instructions and cells written (``MutationStats``). No
+    kernel launches; every plane of each mutated relation stays on the
+    card. With ``profile`` the call runs under cProfile (its wall then
+    includes the profiler's overhead) and the functions with the most own
+    time are printed after the row."""
+    import cProfile
+    import pstats
+    from repro_torch.core import engine as eng
+    names = {m.relation for m in mutations}
+    n_stats = {n: len(db.dml_state(n).stats) for n in names}
+    reset_launches()
+    up = eng.upload_bytes
+    prof = cProfile.Profile() if profile else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if prof:
+        prof.enable()
+    stats = db.apply(mutations)
+    torch.cuda.synchronize()
+    if prof:
+        prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    if any(read_launches().values()):
+        fail(f"path g {label}: db.apply launched {read_launches()}")
+    for n in names:
+        rel = db.relations[n]
+        if not (rel.valid.is_cuda
+                and all(p.is_cuda for p in rel.planes.values())):
+            fail(f"path g {label}: a plane of {n} left the card")
+    muts = "; ".join(f"{st.op} {st.n_rows} rows {st.n_instructions} instrs "
+                     f"{st.cells_written} cells"
+                     for n in sorted(names)
+                     for st in db.dml_state(n).stats[n_stats[n]:])
+    total = sum(e["n_instructions"] for e in stats.values())
+    cells = sum(e["cells_written"] for e in stats.values())
+    print(f"{label:24s} {wall:10.3f} {eng.upload_bytes - up:14d} "
+          f"{total:7d} {cells:13d}   {muts}", flush=True)
+    if prof:
+        st = pstats.Stats(prof)
+        top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:8]
+        print(f"  host profile of {label} (cProfile on): total "
+              f"{st.total_tt * 1e3:.1f} ms; " + "; ".join(
+                  f"{Path(f).name}:{ln}:{fn} {tt * 1e3:.1f} ms"
+                  for (f, ln, fn), (_, _, tt, _, _) in top), flush=True)
+    rows.append({"label": label, "ms": wall,
+                 "bytes": eng.upload_bytes - up, "cells": cells})
+
+
+def htap_fused(db, spec, label) -> object:
+    """``spec`` on FUSED against ORACLE (aggregates, selected-record
+    counts; for a host-stage spec its rows and materialized counts), with
+    ``fused_program`` launched once per relation program and
+    ``materialize`` once per ``Materialize``. Returns the result and its
+    launches."""
+    from repro_torch.db import database as D
+    from repro_torch.db import exec as E
+    reset_launches()
+    got = db.execute(spec)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    if spec.host is not None:
+        n = len(E.split_query(spec)[0])
+        want.update(fused_program=n, materialize=n)
+    else:
+        want.update(fused_program=len(spec.filters))
+    if launches != want:
+        fail(f"path g {label} {spec.name}: launches {launches}, expected "
+             f"{want}")
+    oracle = db.execute(spec, engine=D.Engine.ORACLE)
+    if spec.host is not None:
+        ok = (got.rows == oracle.rows
+              and got.materialized_rows == oracle.materialized_rows)
+    else:
+        ok = got.aggregates == oracle.aggregates and all(
+            int(got.relations[r].mask.sum())
+            == int(oracle.relations[r].mask.sum()) for r in spec.filters)
+    if not ok:
+        fail(f"path g {label}: {spec.name} on FUSED != ORACLE")
+    return got, launches
+
+
+def phase_htap_stream(tables, flush, peaks):
+    """Path g: the HTAP stream of ``benchmarks/bench_kernels.py::
+    bench_htap_stream`` on the card, on a fresh ``PimDatabase(tables)``
+    over path a's SF 1 tables. Returns the path's fused_program record,
+    its materialize and eq_imm/cmp_imm launches and its worst diffs."""
+    from repro_torch.core import bitslice
+    from repro_torch.core import program as prog
+    from repro_torch.db import database as D
+    from repro_torch.db import exec as E
+    from repro_torch.db import queries as Q
+    from repro_torch.db.compiler import Compiler
+    from repro_torch.dml import (Compact, Delete, Insert, MutableTable,
+                                 Update, replay)
+
+    db = D.PimDatabase(tables)
+    verify_compile_timing(db)
+    d = db.dml_state("lineitem")
+    n0 = d.rel.n_records
+    cap0 = d.capacity
+    spec1, spec6, spec14 = (Q.get_query(n) for n in ("Q1", "Q6", "Q14"))
+    q1, q6 = spec1.filter_only(), spec6.filter_only()
+    oracle = MutableTable(tables["lineitem"])
+    src = {a: np.asarray(c) for a, c in tables["lineitem"].items()}
+    rng = np.random.default_rng(7)
+    launches = dict.fromkeys(read_launches(), 0)
+    rows, prev = [], []
+    print(f"path g: lineitem {n0} records, {d.rel.layout.n_words} words a "
+          f"plane, {cap0 - n0} spare slots, row_bits "
+          f"{d.rel.layout.row_bits}; {HTAP_ROUNDS} rounds of "
+          f"{HTAP_BATCH} rows", flush=True)
+    print("mutation                    wall_ms  bytes_to_card  instrs "
+          "cells_written   per mutation")
+
+    def count(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    for r in range(HTAP_ROUNDS):
+        miss0 = prog.program_cache_stats()["misses"]
+        idx = rng.integers(0, n0, HTAP_BATCH)
+        batch = {a: c[idx] for a, c in src.items()}
+        muts = [Insert("lineitem", batch)]
+        if prev:
+            muts.append(Delete("lineitem", row_ids=prev))
+        htap_apply(db, f"round {r + 1} insert+delete", muts, rows,
+                   profile=r == HTAP_ROUNDS - 1)
+        new_ids = oracle.insert(batch)
+        if prev:
+            oracle.delete(row_ids=prev)
+        prev = new_ids
+        r1, l1 = htap_fused(db, q1, f"round {r + 1}")
+        r6, l6 = htap_fused(db, q6, f"round {r + 1}")
+        count(l1)
+        count(l6)
+        print(f"  round {r + 1}: Q1 execute {r1.wall_s * 1e3:.3f} ms, Q6 "
+              f"{r6.wall_s * 1e3:.3f} ms (FUSED, the first after the "
+              "apply)", flush=True)
+        exp = oracle.aggregate(spec6.filters["lineitem"], spec6.aggregates)
+        if tuple(r6.aggregates["all"][a.name]
+                 for a in spec6.aggregates) != exp:
+            fail(f"path g round {r + 1}: Q6 != MutableTable {exp}")
+        misses = prog.program_cache_stats()["misses"] - miss0
+        if r and misses:
+            fail(f"path g round {r + 1}: {misses} tape-cache misses within "
+                 "capacity")
+    leveled = d.segments.busiest_row_ops()
+    unleveled = replay(d.segments.events,
+                       bitslice.pad_words(n0) * bitslice.WORD_BITS, n0,
+                       "first_fit").busiest_row_ops()
+    if leveled > 0.5 * unleveled:
+        fail(f"path g: rotate's busiest row {leveled} > 0.5 x first-fit's "
+             f"{unleveled}")
+
+    htap_apply(db, "update l_quantity=7",
+               [Update("lineitem", {"l_quantity": 7},
+                       pred=spec6.filters["lineitem"])], rows)
+    oracle.update({"l_quantity": 7}, pred=spec6.filters["lineitem"])
+    spare = d.capacity - len(d.slot_of)
+    words0 = d.rel.layout.n_words
+    idx = rng.integers(0, n0, HTAP_GROW)
+    grow = {a: c[idx] for a, c in src.items()}
+    htap_apply(db, f"insert {HTAP_GROW} (grow)",
+               [Insert("lineitem", grow)], rows)
+    oracle.insert(grow)
+    if d.segments.grown_tiles != 1 or \
+            d.rel.layout.n_words != bitslice.pad_words(n0) + \
+            bitslice.TILE_WORDS:
+        fail(f"path g: {HTAP_GROW} rows into {spare} spare slots grew "
+             f"{d.segments.grown_tiles} tiles to {d.rel.layout.n_words} "
+             "words, expected one tile")
+
+    miss0 = prog.program_cache_stats()["misses"]
+    r6, l6 = htap_fused(db, q6, "after growth")
+    grow_misses = prog.program_cache_stats()["misses"] - miss0
+    r14, l14 = htap_fused(db, spec14, "after growth")
+    count(l6)
+    count(l14)
+    exp = oracle.aggregate(spec6.filters["lineitem"], spec6.aggregates)
+    if tuple(r6.aggregates["all"][a.name] for a in spec6.aggregates) != exp:
+        fail(f"path g after growth: Q6 != MutableTable {exp}")
+    reset_launches()
+    e6 = db.execute(q6, engine="eager")
+    torch.cuda.synchronize()
+    le = read_launches()
+    (_, _, instrs), = eager_programs(db, [q6], [])
+    want_eq, want_cmp = imm_predicates(instrs)
+    want = dict.fromkeys(le, 0)
+    want.update(eq_imm=want_eq, cmp_imm=want_cmp)
+    if le != want:
+        fail(f"path g: eager Q6 launched {le}, expected {want}")
+    count(le)
+    if not (e6.aggregates == r6.aggregates
+            == db.execute(q6, engine=D.Engine.ORACLE).aggregates):
+        fail("path g: eager Q6 != FUSED/ORACLE")
+
+    # Kernels against plain at path g's shapes (after growth, holes in
+    # the valid plane): Q6's and Q14's programs, Q14's Materializes and
+    # the eager Q6's operands.
+    record = {"launches": 0, "max_abs_err": 0, "progs": []}
+    q6_progs = programs(db, [q6])
+    for _, rel_, cp in q6_progs:
+        record["progs"].append(fused_timing(cp, rel_, flush))
+    mat_worst = 0
+    for rel_name, pred, cols in E.split_query(spec14)[0]:
+        rel_ = db.relations[rel_name]
+        c = Compiler(rel_)
+        m = (c.compile_filter(pred, with_transform=False)
+             if pred is not None else c.compile_scan_all())
+        c.compile_materialize(m, cols)
+        cp = prog.compile_program(rel_, c.program, mask_outputs=())
+        record["progs"].append(fused_timing(cp, rel_, flush))
+        planes, mask = materialize_inputs(rel_, cp, c.program[-1])
+        diff, _ = check_materialize(f"path g Q14/{rel_name}", planes, mask)
+        mat_worst = max(mat_worst, diff)
+    eager_worst, n_ops, _, _ = check_eager_operands(
+        eager_programs(db, [q6], []))
+    record["max_abs_err"] = max(p["diff"] for p in record["progs"])
+
+    htap_apply(db, "compact", [Compact("lineitem")], rows)
+    r6c, l6c = htap_fused(db, q6, "after compact")
+    count(l6c)
+    exp = oracle.aggregate(spec6.filters["lineitem"], spec6.aggregates)
+    if tuple(r6c.aggregates["all"][a.name]
+             for a in spec6.aggregates) != exp:
+        fail(f"path g after compact: Q6 != MutableTable {exp}")
+    record["launches"] = launches["fused_program"]
+
+    rep = db.report(r6c)
+    print(f"path g wear: rotate's busiest row {leveled:.0f} cell writes "
+          f"after the stream, first-fit replay {unleveled:.0f} (ratio "
+          f"{leveled / unleveled:.4f} <= 0.5); after the update, growth "
+          f"and compact {d.segments.busiest_row_ops():.0f}", flush=True)
+    print(f"path g report (Q6 after compact, sf_scale 1): bytes_resident "
+          f"{rep.bytes_resident}, bytes_reserved {rep.bytes_reserved}, "
+          f"dml_row_ops {rep.dml_row_ops:.0f}, endurance "
+          f"{rep.endurance_ops_per_cell_10y:.6g} ops/cell for 10 years; "
+          f"lineitem {words0} -> {db.relations['lineitem'].layout.n_words} "
+          f"words, watermark {db.relations['lineitem'].n_records}",
+          flush=True)
+    print(f"phase 4g ok: {HTAP_ROUNDS} rounds of insert {HTAP_BATCH} + "
+          f"delete at SF {MAIN_SF}, Q6 == MutableTable and Q1 == ORACLE "
+          f"every round, no tape-cache miss after round 1 (Q6 after the "
+          f"growth: {grow_misses}); update, growth past {spare} spare "
+          f"slots, Q6/"
+          f"Q14 FUSED and Q6 EAGER == ORACLE, compact, Q6 == MutableTable; "
+          f"launches {launches}; fused_program == plain on "
+          f"{len(record['progs'])} programs, materialize on 2, eq/cmp/"
+          f"range on {n_ops} operands; {len(rows)} db.apply calls moved "
+          f"{sum(r['bytes'] for r in rows)} bytes to the card", flush=True)
+    return record, launches, mat_worst, eager_worst
+
+
+def lint_on_card() -> None:
+    """``repro_torch.analysis.lint`` with its database and DML writes on
+    the card, at SF 0.002: it prints its totals; 0 errors or the run
+    fails."""
+    from repro_torch.analysis import lint
+    if lint.lint(sf=0.002, device="cuda"):
+        fail("repro_torch.analysis.lint on the card found errors")
+
+
 def phase_cost_model(db, fused, eager) -> None:
     """``db.report`` of the 19 specs at ``sf_scale`` 1000 (SF 1 -> 1000).
     The numbers are the paper's analytical PIM model, not times of this
@@ -1580,19 +1897,26 @@ def main() -> None:
     path_f, mat_f = phase_linked_batches(db, path_a, path_b, flush)
     print_fused_total(f"the {len(path_f['progs'])} linked programs of path f",
                       path_f["progs"], peaks)
+    path_g, g_launches, g_mat_worst, g_eager_worst = phase_htap_stream(
+        db.tables, flush, peaks)
+    print_fused_total(f"the {len(path_g['progs'])} programs of path g "
+                      "(after growth)", path_g["progs"], peaks)
+    lint_on_card()
     phase_cost_model(db, path_a["results"], eager)
-    fused = fused_entry([path_a, path_b, path_f], peaks)
+    fused = fused_entry([path_a, path_b, path_f, path_g], peaks)
     fused["max_abs_err"] = max(worst, fused["max_abs_err"])
-    mat["launches"] += mat_f
-    mat["max_abs_err"] = max(mat_worst, mat["max_abs_err"])
+    mat["launches"] += mat_f + g_launches["materialize"]
+    mat["max_abs_err"] = max(mat_worst, mat["max_abs_err"], g_mat_worst)
     for c in cols:
+        c["launches"] += g_launches[c["name"]]
         c["max_abs_err"] = max(col_worst, c["max_abs_err"])
     for a in api:
-        a["launches"] += eager_launches[a["name"]]
+        a["launches"] += eager_launches[a["name"]] + g_launches[a["name"]]
         a["max_abs_err"] = max(
             a["max_abs_err"], filt_worst["filter_sum"]
             if a["name"] == "filter_sum" else max(filt_worst["filter"],
-                                                  eager_worst))
+                                                  eager_worst,
+                                                  g_eager_worst))
     print(json.dumps({"kernels": [fused, mat, *cols, *api]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

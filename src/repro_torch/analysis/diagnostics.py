@@ -1,9 +1,9 @@
 """Shared diagnostic type of the PIM-IR static verifier.
 
-The verifier's passes (the reference's ``analysis/passes.py``, not
-ported yet: ROADMAP A9) report findings as :class:`Diagnostic` values —
-one finding per instance, carrying the pass name, severity, the offending
-instruction index/kind and register, and a human-readable message. Compiler-side failures (``compile_program``,
+The verifier's passes (``analysis/passes.py``) report findings as
+:class:`Diagnostic` values — one finding per instance, carrying the pass
+name, severity, the offending instruction index/kind and register, and a
+human-readable message. Compiler-side failures (``compile_program``,
 ``classify_program``, ``classify_lowering``) reuse the same type via
 :class:`ProgramVerificationError` so every failure in the stack names the
 instruction it is about.

@@ -17,9 +17,12 @@ and the plain PyTorch path come from one lowering.
 :class:`Engine` is the reference's eager instruction-at-a-time engine,
 the bit-level oracle of ``Engine.EAGER``: its immediate predicates go
 through ``kernels.ops`` (the CUDA kernels on a CUDA relation), the rest
-runs as torch ops, as the reference runs it in jnp. Its DML writes
-(``PlaneWrite``, ``ValidClear``) and ``PimRelation.shard`` are not
-ported yet (ROADMAP A10, A14).
+runs as torch ops, as the reference runs it in jnp. It also executes the
+DML writes (``PlaneWrite``, ``ValidClear``) of ``dml``: a masked merge of
+host-built row masks, as torch ops on the relation's device (the
+reference computes it in jnp outside any kernel). Not ported yet:
+``PimRelation.shard`` (ROADMAP A14) and the write-fault hook of the
+reference's fault model (A11).
 """
 from __future__ import annotations
 
@@ -314,6 +317,71 @@ def reduce_sum_bits_grouped(planes: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# DML write primitives (``dml``): row-targeted plane programming.
+# The controller receives (rows, values) in the PIM request (Algorithm 1
+# style — values steer the write phases, they are never staged as a
+# bit-plane) and programs the listed crossbar rows. Here that becomes a
+# word-level masked merge: host-built touch/value bitvectors (numpy
+# uint32, as the reference builds them), uploaded as int32 words to the
+# relation's device, one bulk ``(plane & ~touch) | vals`` per plane stack.
+# --------------------------------------------------------------------------
+#: Bytes the write primitives have moved from the host to a device (the
+#: touch and value words of every PlaneWrite/ValidClear executed there).
+upload_bytes = 0
+
+
+def write_touch_mask(rows: np.ndarray, n_words: int) -> np.ndarray:
+    """(W,) uint32 bitvector with the listed record slots set."""
+    rows = np.asarray(rows, np.int64)
+    touch = np.zeros(n_words, np.uint32)
+    if rows.size == 0:
+        return touch
+    word = rows // bitslice.WORD_BITS
+    shift = (rows % bitslice.WORD_BITS).astype(np.uint32)
+    np.bitwise_or.at(touch, word, np.uint32(1) << shift)
+    return touch
+
+
+def plane_write_masks(rows, values, n_bits: int,
+                      n_words: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(touch (W,), vals (n_bits, W)) uint32 masks of one PlaneWrite.
+
+    Rows must be distinct within one instruction (the DML layer dedupes
+    keeping the last write); repeated rows would OR their value bits.
+    """
+    rows = np.asarray(rows, np.int64)
+    touch = write_touch_mask(rows, n_words)
+    vals = np.zeros((n_bits, n_words), np.uint32)
+    if rows.size == 0:
+        return touch, vals
+    v = np.asarray(values, np.uint64)
+    word = rows // bitslice.WORD_BITS
+    shift = (rows % bitslice.WORD_BITS).astype(np.uint32)
+    for b in range(n_bits):
+        bits = ((v >> np.uint64(b)) & np.uint64(1)).astype(np.uint32)
+        np.bitwise_or.at(vals[b], word, bits << shift)
+    return touch, vals
+
+
+def _upload(words: np.ndarray, device) -> torch.Tensor:
+    """Host uint32 words onto ``device`` as int32, counted in
+    ``upload_bytes`` when ``device`` is not the host."""
+    global upload_bytes
+    t = to_planes(words, device)
+    if t.device.type != "cpu":
+        upload_bytes += words.nbytes
+    return t
+
+
+def apply_plane_write(planes: torch.Tensor, touch: np.ndarray,
+                      vals: np.ndarray) -> torch.Tensor:
+    """Masked merge of new row values into an (n_bits, W) plane stack, on
+    the stack's device."""
+    t = _upload(touch, planes.device)
+    return (planes & ~t[None, :]) | _upload(vals, planes.device)
+
+
+# --------------------------------------------------------------------------
 # Relation store
 # --------------------------------------------------------------------------
 def to_planes(a: np.ndarray, device) -> torch.Tensor:
@@ -485,9 +553,28 @@ class Engine:
             # The packed mask already is the row-wise readout; kept in the
             # trace so the cost model charges the paper's 2050 cycles.
             self.masks[instr.dest] = self.masks[instr.mask]
-        elif kind in ("PlaneWrite", "ValidClear"):
-            raise NotImplementedError(
-                f"{kind}: DML writes are not ported yet (ROADMAP A10)")
+        elif kind == "PlaneWrite":
+            W = self.rel.layout.n_words
+            if instr.dest == "__valid__":
+                touch, vals = plane_write_masks(instr.rows, instr.values,
+                                                1, W)
+                valid = apply_plane_write(self.rel.valid[None], touch,
+                                          vals)[0]
+                self.rel = dataclasses.replace(self.rel, valid=valid)
+                self.masks["__valid__"] = valid
+            else:
+                p = self.rel.planes[instr.dest]
+                touch, vals = plane_write_masks(instr.rows, instr.values,
+                                                p.shape[0], W)
+                planes = dict(self.rel.planes)
+                planes[instr.dest] = apply_plane_write(p, touch, vals)
+                self.rel = dataclasses.replace(self.rel, planes=planes)
+        elif kind == "ValidClear":
+            touch = write_touch_mask(np.asarray(instr.rows),
+                                     self.rel.layout.n_words)
+            valid = self.rel.valid & ~_upload(touch, self.rel.valid.device)
+            self.rel = dataclasses.replace(self.rel, valid=valid)
+            self.masks["__valid__"] = valid
         else:
             raise ValueError(f"unknown instruction {kind}")
 

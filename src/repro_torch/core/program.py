@@ -21,9 +21,12 @@ registers renamed); compiled with its ``query_slots``, it is still one
 launch, and :meth:`ProgramResult.query` reads each query's outputs back
 under its own register names.
 
-Left out so far: sharding (ROADMAP A14) and the static verifier that the
-reference runs on every cache miss (A9; it checks the plan and changes no
-result).
+On a tape-cache miss :func:`compile_program` first runs the static
+verifier (``analysis.passes.verify_compile``, the ``"fused"`` backend) over
+the plan, so a program the passes reject raises
+``ProgramVerificationError`` before any tape is recorded or launched.
+
+Left out so far: sharding (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -104,9 +107,12 @@ def analyze_program(instrs: Sequence[isa.PimInstruction],
                 last_use[r] = i
             else:
                 if r not in relation.planes:
-                    raise ValueError(
-                        f"instruction {i} ({ins.kind}) reads '{r}', which is "
-                        "neither a prior dest nor a relation attribute")
+                    from repro_torch.analysis import ProgramVerificationError
+                    raise ProgramVerificationError.single(
+                        "analyze",
+                        f"reads '{r}' which is neither a prior dest nor a "
+                        "relation attribute", instr_index=i,
+                        instr_kind=ins.kind, register=r)
                 if r not in source:
                     source.append(r)
         k = ins.kind
@@ -1014,6 +1020,13 @@ def compile_program(relation: eng.PimRelation,
     sig = program_signature(instrs, mask_outputs, widths)
     tape = _FN_CACHE.get(sig)
     if tape is None:
+        # Static verification rides the cache miss: every program is
+        # checked once, before its tape is recorded, and warm compiles
+        # reuse the cached tape with no added work. Raises
+        # ProgramVerificationError on any error finding.
+        from repro_torch.analysis import passes  # lazy: it imports us
+        passes.verify_compile(instrs, relation, analysis, plan, arith,
+                              frozenset(keep), "fused")
         tape = _build_tape(instrs, kernel_masks, kernel_attrs, widths, plan,
                            arith)
         _FN_CACHE.put(sig, tape)

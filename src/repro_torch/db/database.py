@@ -30,11 +30,17 @@ once. The batch path is split-phase: :meth:`PimDatabase.dispatch_batch`
 compiles, links and runs the device stage, :meth:`PimDatabase.finish_query`
 runs one query's host stage (thread-safe).
 
+``PimDatabase.apply`` runs a DML batch (``dml`` Insert/Delete/Update/
+Compact) against the resident relations on their device and publishes
+them: each mutated relation's version goes up once, ``tables`` follows
+the live rows, and the accumulated write pressure reaches
+``PimDatabase.report``.
+
 ``PimDatabase.report`` / :func:`cost_report` project a run to paper scale
 through the analytical cost model (``core.cost_model``: cycles, read
 traffic, latency, energy and endurance at any scale factor).
 
-Not ported yet: DML, faults and serving (ROADMAP A10–A12).
+Not ported yet: faults and the serving front end (ROADMAP A11, A12).
 """
 from __future__ import annotations
 
@@ -241,16 +247,22 @@ class _BatchQuery:
 class PimDatabase:
     """The PIM-resident relations of ``tables`` as bit-planes on
     ``device`` (default ``"cuda"``; it raises where CUDA is unavailable
-    rather than running anywhere else)."""
+    rather than running anywhere else). ``wear_policy`` is the DML write
+    path's slot allocation policy for append segments: ``"rotate"``
+    (wear-leveled) or ``"first_fit"`` (the unleveled strawman)."""
 
     def __init__(self, tables: Dict[str, Dict[str, np.ndarray]],
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 wear_policy: str = "rotate"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"PimDatabase on {self.device}: torch.cuda.is_available() "
                 "is false (pass device='cpu' to run the plain PyTorch path)")
         self.tables = tables
+        # The lazily built per-relation mutable state (``dml``).
+        self.wear_policy = wear_policy
+        self._dml: Dict[str, object] = {}
         # Counters of the most recent FUSED execute() — None until one ran.
         self.last_batch_stats: Optional[Dict[str, object]] = None
         # finish_query may add host_s into shared batch stats from several
@@ -674,14 +686,98 @@ class PimDatabase:
                            wall_s=time.perf_counter() - t_all,
                            materialized_rows=mat_rows)
 
+    # -- DML (``dml``): mutable relations -----------------------------------
+    def dml_state(self, rel_name: str):
+        """The lazily built :class:`~repro_torch.dml.RelationDml` of one
+        PIM-resident relation (created on first use; the relation handle
+        is republished with its append-segment capacity pinned, which
+        keeps ``layout.n_words`` stable across within-capacity
+        inserts)."""
+        from repro_torch import dml as dml_mod   # lazy: dml imports db
+        d = self._dml.get(rel_name)
+        if d is None:
+            if rel_name not in self.relations:
+                raise KeyError(f"{rel_name!r} is not PIM-resident")
+            d = dml_mod.RelationDml(self.relations[rel_name],
+                                    self.tables[rel_name],
+                                    policy=self.wear_policy)
+            self.relations[rel_name] = d.rel
+            self._dml[rel_name] = d
+        return d
+
+    def apply(self, mutations: Sequence[object]
+              ) -> Dict[str, Dict[str, object]]:
+        """Apply a DML batch (``dml`` Insert/Delete/Update/Compact specs) in
+        order, on each relation's device, and publish the mutated
+        relations (:meth:`publish`: each version goes up once per batch,
+        ``self.tables`` follows the live rows). Returns per-relation
+        accounting."""
+        from repro_torch import dml as dml_mod
+        stats: Dict[str, Dict[str, object]] = {}
+        order: List[str] = []
+        for m in mutations:
+            name = dml_mod.mutation_relation(m)
+            st = self.dml_state(name).apply(m)
+            entry = stats.setdefault(name, {
+                "n_mutations": 0, "n_rows": 0, "n_instructions": 0,
+                "cycles": 0, "cells_written": 0})
+            entry["n_mutations"] += 1
+            entry["n_rows"] += st.n_rows
+            entry["n_instructions"] += st.n_instructions
+            entry["cycles"] += st.cycles
+            entry["cells_written"] += st.cells_written
+            if name not in order:
+                order.append(name)
+        versions = self.publish(order)
+        for name in order:
+            d = self._dml[name]
+            entry = stats[name]
+            entry["version"] = versions[name]
+            entry["busiest_row_ops"] = d.segments.busiest_row_ops()
+            entry["capacity_records"] = d.capacity
+        return stats
+
+    def publish(self, rel_names: Sequence[str]) -> Dict[str, int]:
+        """Publish the current DML state of each named relation: bump the
+        content version (version-keyed result caches miss from then on by
+        construction) and re-point ``self.tables`` at the live rows
+        (logical-id order), keeping the ORACLE path in step. The tables
+        dict is shallow-copied first: several databases may share one.
+        Returns ``{name: new_version}``."""
+        self.tables = dict(self.tables)
+        versions: Dict[str, int] = {}
+        for name in rel_names:
+            d = self._dml[name]
+            version = max(d.rel.version,
+                          self.relations[name].version) + 1
+            rel = dataclasses.replace(d.rel, version=version)
+            self.relations[name] = rel
+            d.rel = rel
+            self.tables[name] = d.live_columns()
+            versions[name] = version
+        return versions
+
+    def dml_row_ops(self) -> Dict[str, float]:
+        """Accumulated busiest-row DML cell writes per mutated relation
+        (the §6.4 write pressure ``cost_report`` folds into endurance)."""
+        return {name: d.segments.busiest_row_ops()
+                for name, d in self._dml.items()}
+
     def report(self, run: QueryResult, sf_scale: float = 1.0,
                hw: cm.HwParams = cm.DEFAULT_HW) -> "QueryCostReport":
-        """:func:`cost_report` with this database's resident and reserved
-        plane bytes. The port has no DML yet, so no write pressure is
-        folded in (the reference's ``dml_row_ops()`` of an unmutated
-        database, ``{}``)."""
+        """:func:`cost_report` with this database's state: resident and
+        reserved plane bytes, and the accumulated DML write pressure."""
         return cost_report(run, sf_scale, hw, relations=self.relations,
-                           dml_row_ops={})
+                           dml_row_ops=self.dml_row_ops())
+
+    # -- relation versioning -------------------------------------------------
+    def bump_version(self, rel_name: str) -> int:
+        """Advance a relation's monotonic content version (version-keyed
+        result caches miss from then on by construction). Returns the new
+        version."""
+        rel = self.relations[rel_name].bumped()
+        self.relations[rel_name] = rel
+        return rel.version
 
     # -- deprecated shims ----------------------------------------------------
     def run_pim(self, spec: Q.QuerySpec, fused: bool = True) -> QueryResult:

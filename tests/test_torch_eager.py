@@ -273,13 +273,22 @@ def test_engine_coerce_and_unported_writes(port_db):
     assert tdb.Engine.coerce(tdb.Engine.ORACLE) is tdb.Engine.ORACLE
     rel = port_db.relations["lineitem"]
     e = te.Engine(rel)
-    with pytest.raises(NotImplementedError, match="A10"):
-        e.execute(tisa.PlaneWrite(dest="l_quantity", rows=(0,), values=(1,),
-                                  n_bits=rel.width_of("l_quantity")))
-    with pytest.raises(NotImplementedError, match="A10"):
-        e.execute(tisa.ValidClear(dest="__valid__", rows=(0,)))
     e.execute(tisa.SetReset(dest="all", value=1, n_bits=1))
     assert e.count("all") == rel.n_records
+    # The DML writes (ported with the dml package) program the engine's
+    # copy of the relation, never the database's.
+    width = rel.width_of("l_quantity")
+    e.execute(tisa.PlaneWrite(dest="l_quantity", rows=(0, 33),
+                              values=((1 << width) - 1, 0), n_bits=width))
+    e.execute(tisa.ValidClear(dest="__valid__", rows=(0,)))
+    got = tb.unpack_bits(te.to_words(e.rel.planes["l_quantity"]),
+                                  rel.n_records)
+    want = tb.unpack_bits(te.to_words(rel.planes["l_quantity"]),
+                                   rel.n_records)
+    assert (got[0], got[33]) == ((1 << width) - 1, 0)
+    assert np.array_equal(np.delete(got, [0, 33]), np.delete(want, [0, 33]))
+    assert e.count("all") == rel.n_records - 1
+    assert te.Engine(rel).count("__valid__") == rel.n_records
     # A list on EAGER runs spec by spec (linking is FUSED's).
     got, = port_db.execute([tq.get_query("Q6")], engine="eager")
     assert got.engine is tdb.Engine.EAGER
