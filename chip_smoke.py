@@ -99,6 +99,32 @@ Phases (any failure exits non-zero before the last line):
       moved to the card, instructions and cells written, the wear and the
       cost report's bytes and endurance; then the lint sweep
       (``repro_torch.analysis.lint``) runs on the card at SF 0.002.
+   h. the query service over a.'s database: the trace of
+      ``benchmarks/bench_kernels.py::bench_serve`` (4 waves of Q1, Q6,
+      Q14, Q3, Q12, Q19, Q6, Q1) through ``launch.serve.serve_trace`` at
+      concurrency 8 (max_window 8, max_wait 2 ms, max_pending 8), a fresh
+      ``QueryService`` per replay, one cold replay and three warm, each
+      result equal to the spec's sequential FUSED result of a./b. and its
+      ORACLE result; every distinct spec dispatched once a replay,
+      ``fused_program`` once per relation of each window and ``materialize``
+      once per ``Materialize``; a table of qps against the sequential loop,
+      p50/p99, dispatches, plane reads, cache hits, coalesced requests and
+      windows; then ``DEFAULT_TRACE`` through ``serve_trace`` against a
+      sequential ``execute`` loop (``--compare``'s parity); then the two
+      service scenarios of ``tests/test_faults.py`` with a
+      ``faults.FaultManager`` on a fresh database: a transient dispatch
+      fault retried once, and retries exhausted -> two windows degraded to
+      EAGER on the card (only ``eq_imm``/``cmp_imm``) -> a FUSED probe
+      that closes the breaker, their counters equal to the reference's.
+   i. the chaos soak (``faults.chaos.run_chaos`` on the card): at sf
+      0.005 its counters equal ``benchmarks/baseline.json``'s
+      ``chaos_soak`` field by field; at SF 1 (its own
+      ``tpch.generate(sf=1, seed=0)``) it is ``ok`` with every injected
+      fault detected, the breaker closed after one trip and one recovery;
+      it prints the counters, each scrub's wall and bytes copied off the
+      card and those of each verify-after-write. ``fused_program``
+      launches once per FUSED dispatch, ``eq_imm``/``cmp_imm`` only in
+      degraded windows, nothing else.
    Then every kernel against its plain version bit for bit at those SF 1
    shapes, and the times: first the timing floor (an empty kernel timed
    the same way, after a 64 MB write flush, a read flush and none); per
@@ -118,7 +144,7 @@ Phases (any failure exits non-zero before the last line):
    found equal): the paper's analytical model, not a measurement of the
    card.
 6. One ``{"kernels": [...]}`` JSON line (eight kernels; ``fused_program``
-   over the programs of paths a, b, f and g; launches of paths a-g), then
+   over the programs of paths a, b, f and g; launches of paths a-i), then
    ``{"ok": true, ...}`` last.
 
 Seeds fix the data; nothing is read from outside the checkout.
@@ -1823,6 +1849,354 @@ def phase_htap_stream(tables, flush, peaks):
     return record, launches, mat_worst, eager_worst
 
 
+# Path h: the query service (the bench_serve trace of
+# benchmarks/bench_kernels.py): 4 waves of 8 requests at concurrency 8.
+SERVE_WAVE = ("Q1", "Q6", "Q14", "Q3", "Q12", "Q19", "Q6", "Q1")
+SERVE_WAVES, SERVE_CONC, SERVE_WARM = 4, 8, 3
+
+
+def served_equal(label, specs, results, path_a, path_b) -> None:
+    """Each served result's rows and aggregates equal the same spec's
+    sequential FUSED result of path a or b and its ORACLE result."""
+    for spec, got in zip(specs, results):
+        src = path_b if spec.host is not None else path_a
+        for want in (src["results"][spec.name], src["oracle"][spec.name]):
+            if got.rows != want.rows or got.aggregates != want.aggregates:
+                fail(f"path h {label}: {spec.name} served != sequential "
+                     f"FUSED / ORACLE ({want.engine.value})")
+
+
+def serve_launch_check(label, specs, stats, launches) -> None:
+    """A replay through a fresh service dispatches every distinct spec of
+    its trace once (repeats coalesce or hit the cache): ``fused_program``
+    once per relation of each window (the service's ``dispatches``),
+    ``materialize`` once per ``Materialize`` of a dispatched host-stage
+    spec, nothing else."""
+    from repro_torch.db import exec as E
+    distinct = {s.name: s for s in specs}
+    if stats["batcher"]["items"] != len(distinct):
+        fail(f"path h {label}: {stats['batcher']['items']} requests "
+             f"dispatched for {len(distinct)} distinct specs")
+    want = dict.fromkeys(launches, 0)
+    want["fused_program"] = stats["dispatches"]
+    want["materialize"] = sum(len(E.split_query(s)[0])
+                              for s in distinct.values()
+                              if s.host is not None)
+    if launches != want:
+        fail(f"path h {label}: launches {launches}, expected {want}")
+
+
+def print_serve_row(label, n, stats, wall, seq_wall) -> None:
+    lat = stats["latency_ms"]
+    print(f"{label:14s} {n:4d} {wall * 1e3:10.3f} {n / wall:9.3f} "
+          f"{n / seq_wall:9.3f} {lat['p50']:9.3f} {lat['p99']:9.3f} "
+          f"{stats['dispatches']:5d} {stats['plane_reads']:6d} "
+          f"{stats['cache']['hits']:5d} {stats['coalesced']:5d} "
+          f"{stats['batcher']['windows']:5d}", flush=True)
+
+
+def fault_service_scenarios(tables, path_a) -> dict:
+    """``tests/test_faults.py``'s two service scenarios on the card, on a
+    fresh database over ``tables``: one transient dispatch fault retried
+    once; two that exhaust the retries, trip the breaker and degrade two
+    windows to EAGER on the card, then a half-open FUSED probe after a
+    one-row insert closes it. Counters equal the reference's, results
+    equal ORACLE; the retried window launches ``fused_program`` once, the
+    degraded windows only ``eq_imm``/``cmp_imm``. Returns the launches."""
+    import asyncio
+    from repro_torch import dml
+    from repro_torch.db import database as D
+    from repro_torch.db import queries as Q
+    from repro_torch.faults import CircuitBreaker, FaultManager, RetryPolicy
+    from repro_torch.serve import QueryService
+
+    fdb = D.PimDatabase(tables)
+    q6, q1 = (Q.get_query(n).filter_only() for n in ("Q6", "Q1"))
+    total = dict.fromkeys(read_launches(), 0)
+
+    fm = FaultManager(fdb)
+
+    async def retry():
+        async with QueryService(fdb, max_wait_s=0.001,
+                                fault_manager=fm) as svc:
+            fm.model.inject_dispatch_faults(1)
+            return await svc.submit(q6), svc
+
+    reset_launches()
+    r, svc = asyncio.run(asyncio.wait_for(retry(), 600))
+    launches = read_launches()
+    got = (svc.n_transient_faults, svc.n_retries, svc.n_fault_recovered,
+           svc.n_errors, fm.breaker.state)
+    if got != (1, 1, 1, 0, "closed") or \
+            r.aggregates != path_a["oracle"]["Q6"].aggregates:
+        fail(f"path h retry: (transient, retries, recovered, errors, "
+             f"breaker) {got}, expected (1, 1, 1, 0, 'closed'), or Q6 != "
+             "ORACLE")
+    if launches != {**dict.fromkeys(launches, 0), "fused_program": 1}:
+        fail(f"path h retry: launches {launches}")
+    for k, v in launches.items():
+        total[k] += v
+    print(f"path h retry: transient {got[0]}, retries {got[1]}, recovered "
+          f"{got[2]}, errors {got[3]}, breaker {got[4]}; Q6 == ORACLE; "
+          f"launches {launches}", flush=True)
+
+    fm = FaultManager(fdb, retry=RetryPolicy(max_retries=1,
+                                             base_delay_s=0.0),
+                      breaker=CircuitBreaker(failure_threshold=1,
+                                             cooldown_windows=2))
+    take = {a: np.asarray(c[:1]) for a, c in tables["lineitem"].items()}
+
+    async def degrade():
+        async with QueryService(fdb, max_wait_s=0.001,
+                                fault_manager=fm) as svc:
+            fm.model.inject_dispatch_faults(2)
+            r6 = await svc.submit(q6)
+            r1 = await svc.submit(q1)
+            await svc.apply([dml.Insert("lineitem", take)])
+            r6b = await svc.submit(q6)
+            return r6, r1, r6b, svc
+
+    want_eq = want_cmp = 0
+    for _, _, instrs in eager_programs(fdb, [q6, q1], []):
+        eq, cmp = imm_predicates(instrs)
+        want_eq, want_cmp = want_eq + eq, want_cmp + cmp
+    reset_launches()
+    t0 = time.perf_counter()
+    r6, r1, r6b, svc = asyncio.run(asyncio.wait_for(degrade(), 600))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = svc.stats()
+    got = (svc.n_errors, svc.n_degraded_windows, svc.n_fault_recovered,
+           st["breaker"])
+    want = (0, 2, 2, {"state": "closed", "trips": 1, "recoveries": 1})
+    if got != want:
+        fail(f"path h degrade: (errors, degraded, recovered, breaker) {got},"
+             f" expected {want}")
+    if (r6.engine, r1.engine, r6b.engine) != (D.Engine.EAGER,) * 2 + (
+            D.Engine.FUSED,):
+        fail("path h degrade: the degraded windows did not run EAGER or the "
+             "probe not FUSED")
+    if r6.aggregates != path_a["oracle"]["Q6"].aggregates or \
+            r1.aggregates != path_a["oracle"]["Q1"].aggregates or \
+            r6b.aggregates != fdb.execute(q6, engine=D.Engine.ORACLE
+                                          ).aggregates:
+        fail("path h degrade: a result != ORACLE")
+    want_l = {**dict.fromkeys(launches, 0), "fused_program": 1,
+              "eq_imm": want_eq, "cmp_imm": want_cmp}
+    if launches != want_l:
+        fail(f"path h degrade: launches {launches}, expected {want_l}")
+    for k, v in launches.items():
+        total[k] += v
+    print(f"path h degrade: errors {got[0]}, degraded windows {got[1]}, "
+          f"recovered {got[2]}, breaker {got[3]}; EAGER Q6, Q1 and the FUSED "
+          f"probe == ORACLE; launches {launches}; {wall:.3f} s", flush=True)
+    return total
+
+
+def phase_query_service(db, path_a, path_b) -> dict:
+    """Path h: ``QueryService`` over path a's database on the card (the
+    bench_serve trace, then ``DEFAULT_TRACE`` with ``--compare``'s
+    parity, then the fault manager's two service scenarios). Returns the
+    path's launches."""
+    from repro_torch.db import queries as Q
+    from repro_torch.launch import serve as launch
+
+    t_path = time.perf_counter()
+    trace = [Q.get_query(n) for n in SERVE_WAVE * SERVE_WAVES]
+    for name in set(SERVE_WAVE):
+        db.execute(Q.get_query(name))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = [db.execute(s) for s in trace]
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    served_equal("sequential loop", trace, seq, path_a, path_b)
+    total = dict.fromkeys(read_launches(), 0)
+    print(f"path h: {len(trace)} requests ({SERVE_WAVES} x "
+          f"{'/'.join(SERVE_WAVE)}), concurrency {SERVE_CONC}, max_window "
+          f"{SERVE_CONC}, max_wait 2 ms, max_pending {SERVE_CONC}, a fresh "
+          f"QueryService per replay; sequential execute loop "
+          f"{seq_wall * 1e3:.3f} ms", flush=True)
+    print("replay            n    wall_ms       qps   seq_qps   p50_ms    "
+          "p99_ms  disp  reads  hits  coal  wins")
+    for i in range(1 + SERVE_WARM):
+        label = "cold" if i == 0 else f"warm {i}"
+        reset_launches()
+        results, stats, wall = launch.serve_trace(
+            db, trace, concurrency=SERVE_CONC, max_window=SERVE_CONC,
+            max_wait_s=0.002)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        served_equal(label, trace, results, path_a, path_b)
+        if stats["errors"] or stats["completed"] != len(trace):
+            fail(f"path h {label}: {stats['errors']} errors, "
+                 f"{stats['completed']} of {len(trace)} completed")
+        serve_launch_check(label, trace, stats, launches)
+        for k, v in launches.items():
+            total[k] += v
+        print_serve_row(label, len(trace), stats, wall, seq_wall)
+
+    specs = launch.parse_trace(launch.DEFAULT_TRACE)
+    reset_launches()
+    results, stats, wall = launch.serve_trace(db, specs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    serve_launch_check("DEFAULT_TRACE", specs, stats, launches)
+    for k, v in launches.items():
+        total[k] += v
+    t0 = time.perf_counter()
+    seq = [db.execute(s) for s in specs]
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    mismatched = [s.name for s, r, q in zip(specs, results, seq)
+                  if r.rows != q.rows or r.aggregates != q.aggregates]
+    if mismatched:
+        fail(f"path h DEFAULT_TRACE: service != sequential for {mismatched}")
+    served_equal("DEFAULT_TRACE", specs, results, path_a, path_b)
+    print_serve_row("DEFAULT_TRACE", len(specs), stats, wall, seq_wall)
+    print(f"path h DEFAULT_TRACE: service {wall * 1e3:.3f} ms, sequential "
+          f"execute loop {seq_wall * 1e3:.3f} ms -> speedup "
+          f"{seq_wall / wall:.2f}x (bit-parity ok)", flush=True)
+
+    for k, v in fault_service_scenarios(db.tables, path_a).items():
+        total[k] += v
+    print(f"phase 4h ok: {1 + SERVE_WARM} replays of {len(trace)} and one of "
+          f"{len(specs)} requests == sequential FUSED and ORACLE; fault "
+          f"scenarios' counters == the reference's; launches {total}; "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
+    return total
+
+
+def chaos_launch_check(label, rep, launches) -> None:
+    """A soak launches ``fused_program`` once per FUSED dispatch (Q1 and
+    Q6 touch lineitem alone), ``eq_imm``/``cmp_imm`` only in its degraded
+    windows, nothing else (its writes, scrubs and repairs are torch ops)."""
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_program=rep["dispatches"], eq_imm=launches["eq_imm"],
+                cmp_imm=launches["cmp_imm"])
+    if launches != want or \
+            (launches["eq_imm"] + launches["cmp_imm"] > 0) != \
+            (rep["degraded_windows"] > 0):
+        fail(f"path i {label}: launches {launches} for "
+             f"{rep['dispatches']} dispatches and "
+             f"{rep['degraded_windows']} degraded windows")
+
+
+CHAOS_COUNTERS = ("ok", "parity", "all_detected", "injected",
+                  "detected_injected", "detect_latency_rounds",
+                  "write_faults", "worn_dead", "repaired_rows",
+                  "remapped_rows", "retired_slots", "scrubs", "dispatches",
+                  "transient_faults", "retries", "degraded_windows",
+                  "recovered_queries", "breaker_state", "breaker_trips",
+                  "breaker_recoveries", "wall_s", "qps")
+
+
+def phase_chaos_soak() -> dict:
+    """Path i: ``faults.chaos.run_chaos`` on the card, at sf 0.005 (its
+    counters == ``benchmarks/baseline.json``'s ``chaos_soak``) and at SF 1
+    (every injected fault detected, parity, the breaker closed after one
+    trip and one recovery), with each scrub's wall and the bytes each
+    scrub and each verify-after-write copied off the card. Returns the
+    path's launches."""
+    from repro_torch.faults import chaos
+    t_path = time.perf_counter()
+    base = json.loads((Path(__file__).resolve().parent
+                       / "benchmarks/baseline.json").read_text())
+    meta = base["rows"]["chaos_soak"]["meta"]
+    total = dict.fromkeys(read_launches(), 0)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = chaos.run_chaos(sf=base["sf"], device="cuda")
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_launches()
+    names = {"detected": "detected_injected"}
+    keys = ("injected", "detected", "detect_latency_rounds", "write_faults",
+            "worn_dead", "remapped_rows", "repaired_rows", "dispatches",
+            "transient_faults", "retries", "degraded_windows",
+            "recovered_queries", "breaker_trips", "breaker_recoveries")
+    got = {k: rep[names.get(k, k)] for k in keys}
+    want = {k: meta[k] for k in keys}
+    if not rep["ok"] or got != want or rep["breaker_state"] != "closed" \
+            or (rep["rounds"], rep["batch"]) != (meta["rounds"],
+                                                 meta["batch"]):
+        fail(f"path i sf {base['sf']}: report {got} (ok {rep['ok']}, "
+             f"breaker {rep['breaker_state']}, violations "
+             f"{rep['violations']}) != baseline.json's chaos_soak {want}")
+    chaos_launch_check(f"sf {base['sf']}", rep, launches)
+    for k, v in launches.items():
+        total[k] += v
+    print(f"path i sf {base['sf']}: report == baseline.json's chaos_soak "
+          f"({', '.join(f'{k} {v}' for k, v in got.items())}), breaker "
+          f"closed; soak {rep['wall_s']:.3f} s, call {call_s:.3f} s; "
+          f"launches {launches}", flush=True)
+
+    from repro_torch.faults import guard
+    managers = []
+    spent = dict.fromkeys(("apply", "publish", "dispatch_batch",
+                           "_execute_one", "run_baseline"), 0.0)
+
+    def watch(fm):
+        """Time the database calls of the soak (on the instance: the
+        service, the manager and the soak call these names)."""
+        managers.append(fm)
+        for name in spent:
+            fn = getattr(fm.db, name)
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    spent[_name] += time.perf_counter() - t
+            setattr(fm.db, name, timed)
+
+    reset_launches()
+    bytes0 = guard.readback_bytes
+    t0 = time.perf_counter()
+    rep = chaos.run_chaos(sf=MAIN_SF, device="cuda", on_manager=watch)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_launches()
+    fm, = managers
+    if not (rep["ok"] and rep["parity"] and rep["all_detected"]
+            and rep["detected_injected"] == rep["injected"] == 4
+            and rep["breaker_state"] == "closed"
+            and (rep["breaker_trips"], rep["breaker_recoveries"]) == (1, 1)):
+        fail(f"path i SF {MAIN_SF}: {rep}")
+    chaos_launch_check(f"SF {MAIN_SF}", rep, launches)
+    for k, v in launches.items():
+        total[k] += v
+    print(f"path i SF {MAIN_SF}: " + ", ".join(
+        f"{k} {rep[k]}" for k in CHAOS_COUNTERS) + f"; call {call_s:.3f} s "
+        f"(tables generated inside); launches {launches}", flush=True)
+    print(f"path i SF {MAIN_SF} scrubs (wall_ms / bytes off the card): "
+          + "; ".join(f"{w * 1e3:.3f} / {b}" for w, b in fm.scrub_log),
+          flush=True)
+    scrub_s = sum(w for w, _ in fm.scrub_log)
+    rest = rep["wall_s"] - scrub_s - sum(
+        v for k, v in spent.items() if k != "publish")
+    print(f"path i SF {MAIN_SF} soak {rep['wall_s']:.3f} s by call: "
+          f"db.apply {spent['apply']:.3f} s, scrubs {scrub_s:.3f} s "
+          f"(publish inside both: {spent['publish']:.3f} s), FUSED "
+          f"dispatch_batch {spent['dispatch_batch']:.3f} s, degraded EAGER "
+          f"queries {spent['_execute_one']:.3f} s, numpy Q1 baseline "
+          f"{spent['run_baseline']:.3f} s, the rest (MutableTable oracle, "
+          f"service, wear) {rest:.3f} s", flush=True)
+    wc = fm.write_check_bytes
+    print(f"path i SF {MAIN_SF} verify-after-write: {len(wc)} write "
+          f"programs, bytes off the card {sum(wc)} in all, {min(wc)} to "
+          f"{max(wc)} each ({sorted(set(wc))}); the integrity layer copied "
+          f"{guard.readback_bytes - bytes0} bytes off the card in all",
+          flush=True)
+    print(f"phase 4i ok: chaos soak at sf {base['sf']} == baseline.json and "
+          f"at SF {MAIN_SF} ok with all {rep['injected']} faults detected; "
+          f"launches {total}; {time.perf_counter() - t_path:.1f} s",
+          flush=True)
+    return total
+
+
 def lint_on_card() -> None:
     """``repro_torch.analysis.lint`` with its database and DML writes on
     the card, at SF 0.002: it prints its totals; 0 errors or the run
@@ -1902,16 +2276,23 @@ def main() -> None:
     print_fused_total(f"the {len(path_g['progs'])} programs of path g "
                       "(after growth)", path_g["progs"], peaks)
     lint_on_card()
+    h_launches = phase_query_service(db, path_a, path_b)
+    i_launches = phase_chaos_soak()
     phase_cost_model(db, path_a["results"], eager)
     fused = fused_entry([path_a, path_b, path_f, path_g], peaks)
     fused["max_abs_err"] = max(worst, fused["max_abs_err"])
-    mat["launches"] += mat_f + g_launches["materialize"]
+    fused["launches"] += h_launches["fused_program"] + \
+        i_launches["fused_program"]
+    mat["launches"] += mat_f + g_launches["materialize"] + \
+        h_launches["materialize"] + i_launches["materialize"]
     mat["max_abs_err"] = max(mat_worst, mat["max_abs_err"], g_mat_worst)
     for c in cols:
-        c["launches"] += g_launches[c["name"]]
+        c["launches"] += (g_launches[c["name"]] + h_launches[c["name"]]
+                          + i_launches[c["name"]])
         c["max_abs_err"] = max(col_worst, c["max_abs_err"])
     for a in api:
-        a["launches"] += eager_launches[a["name"]] + g_launches[a["name"]]
+        a["launches"] += (eager_launches[a["name"]] + g_launches[a["name"]]
+                          + h_launches[a["name"]] + i_launches[a["name"]])
         a["max_abs_err"] = max(
             a["max_abs_err"], filt_worst["filter_sum"]
             if a["name"] == "filter_sum" else max(filt_worst["filter"],

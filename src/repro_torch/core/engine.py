@@ -20,9 +20,9 @@ through ``kernels.ops`` (the CUDA kernels on a CUDA relation), the rest
 runs as torch ops, as the reference runs it in jnp. It also executes the
 DML writes (``PlaneWrite``, ``ValidClear``) of ``dml``: a masked merge of
 host-built row masks, as torch ops on the relation's device (the
-reference computes it in jnp outside any kernel). Not ported yet:
-``PimRelation.shard`` (ROADMAP A14) and the write-fault hook of the
-reference's fault model (A11).
+reference computes it in jnp outside any kernel), through the
+process-wide write-fault hook of ``faults`` when one is installed. Not
+ported yet: ``PimRelation.shard`` (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -381,6 +381,29 @@ def apply_plane_write(planes: torch.Tensor, touch: np.ndarray,
     return (planes & ~t[None, :]) | _upload(vals, planes.device)
 
 
+# Device-fault injection hook (``repro_torch.faults``): when installed,
+# every DATA plane write is routed through it — dead rows drop their
+# touch/value bits from the host masks before they go up (the write never
+# programs the row, modeling endurance-exhausted cells), and stuck-at
+# cells force their value back after the merge, on the planes' device.
+# The valid plane is exempt by model choice: it is the one plane the
+# controller can always program (an SLC-style healthier region), so
+# quarantining a faulty row via ValidClear always succeeds.
+_WRITE_FAULT_HOOK = None
+
+
+def install_write_fault_hook(hook):
+    """Install (or, with ``None``, remove) the process-wide write-fault
+    hook.  Returns the previously installed hook so callers can restore
+    it; the hook must provide ``filter_plane_write(rel, attr, touch,
+    vals) -> (touch, vals)`` on the numpy masks and ``force_stuck(rel,
+    attr, planes) -> planes`` on the merged tensor."""
+    global _WRITE_FAULT_HOOK
+    prev = _WRITE_FAULT_HOOK
+    _WRITE_FAULT_HOOK = hook
+    return prev
+
+
 # --------------------------------------------------------------------------
 # Relation store
 # --------------------------------------------------------------------------
@@ -566,8 +589,15 @@ class Engine:
                 p = self.rel.planes[instr.dest]
                 touch, vals = plane_write_masks(instr.rows, instr.values,
                                                 p.shape[0], W)
+                hook = _WRITE_FAULT_HOOK
+                if hook is not None:
+                    touch, vals = hook.filter_plane_write(
+                        self.rel.name, instr.dest, touch, vals)
                 planes = dict(self.rel.planes)
                 planes[instr.dest] = apply_plane_write(p, touch, vals)
+                if hook is not None:
+                    planes[instr.dest] = hook.force_stuck(
+                        self.rel.name, instr.dest, planes[instr.dest])
                 self.rel = dataclasses.replace(self.rel, planes=planes)
         elif kind == "ValidClear":
             touch = write_touch_mask(np.asarray(instr.rows),

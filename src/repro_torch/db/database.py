@@ -40,7 +40,10 @@ the live rows, and the accumulated write pressure reaches
 through the analytical cost model (``core.cost_model``: cycles, read
 traffic, latency, energy and endurance at any scale factor).
 
-Not ported yet: faults and the serving front end (ROADMAP A11, A12).
+``serve.QueryService`` serves concurrent submissions over this class
+(admission windows through :meth:`PimDatabase.dispatch_batch`, a
+version-keyed result cache), and ``faults.FaultManager`` guards its
+relations (parity scrubs, verify-after-write, repair and republish).
 """
 from __future__ import annotations
 
@@ -126,7 +129,8 @@ class QueryResult:
     schema's presentation — and ``materialized_rows`` the records each
     relation handed the host. ``batch_stats`` holds the FUSED run's
     launch-level accounting, shared by every member of one batch (``None``
-    on EAGER and ORACLE)."""
+    on EAGER and ORACLE); ``cached`` is set by the serving layer
+    (``serve.QueryService``) when the result came from its result cache."""
     spec: Q.QuerySpec
     engine: Engine = Engine.FUSED
     aggregates: Dict[str, Dict[str, object]] = dataclasses.field(
@@ -141,6 +145,7 @@ class QueryResult:
     materialized_rows: Dict[str, int] = dataclasses.field(
         default_factory=dict)
     batch_stats: Optional[Dict[str, object]] = None
+    cached: bool = False
 
     @property
     def name(self) -> str:

@@ -99,10 +99,8 @@ class RelationDml:
         self.trace: List[isa.PimInstruction] = []
         self.programs: List[Tuple[str, Tuple[isa.PimInstruction, ...]]] = []
         self.stats: List[MutationStats] = []
-        # Integrity observer of the reference's fault model (its
-        # FaultManager): when set, every executed write program is verified
-        # against its intended values. None until the fault model is
-        # ported (ROADMAP A11).
+        # Integrity observer (``faults.FaultManager``): when set, every
+        # executed write program is verified against its intended values.
         self.integrity = None
 
     # -- storage ----------------------------------------------------------
@@ -360,7 +358,7 @@ class RelationDml:
         self._set_watermark(int(slot_arr.max()) + 1 if k else 0)
         return k
 
-    # -- fault recovery (the reference's repro.faults; ROADMAP A11) -------
+    # -- fault recovery (``faults``) ----------------------------------------
     def rewrite_rows(self, slots: Sequence[int]) -> int:
         """Repair soft (transient) corruption in place: re-program every
         listed slot from the host shadow — live slots get their full

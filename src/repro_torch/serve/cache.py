@@ -1,8 +1,7 @@
 """Version-keyed result cache for the query service.
 
 The counterpart of ``repro.serve.cache``, equal to it apart from this
-note and its import lines (the service and its admission batcher are not
-ported yet: ROADMAP A12).
+note and its import lines.
 
 The key of a (spec, engine) request is built from the *canonical*
 program structure — every filter predicate canonicalized
