@@ -125,6 +125,33 @@ Phases (any failure exits non-zero before the last line):
       card and those of each verify-after-write. ``fused_program``
       launches once per FUSED dispatch, ``eq_imm``/``cmp_imm`` only in
       degraded windows, nothing else.
+   j. record-sharded relations: ``PimDatabase(tables, mesh=make_mesh((2,
+      4), ("pod", "data"), device="cuda"))`` over a.'s tables, every
+      relation split 8 ways on the one card (lineitem 23,552 words a
+      shard). a.'s 21 specs (masks bit-equal, aggregates equal) and the
+      six host specs (rows, columns, materialized counts) equal a.'s and
+      b.'s single-device results, ``Qavg_empty`` gives None;
+      ``fused_program`` launches once per relation program and shard,
+      ``materialize`` once per ``Materialize`` and shard. Q1+Q6+Q14+Q19
+      linked: ``n_dispatches`` 2, each result equal. The 5-request service
+      smoke (``max_window`` 3, ``max_wait_s`` 0.005): 0 errors, 2
+      coalesced, results equal. Q6 on EAGER (the gathered view) equals
+      FUSED; ``distributed_filter_aggregate`` over lineitem (``cmp_imm``
+      on each shard) equals numpy. Each shard's ``fused_program`` and
+      ``materialize`` equal their plain versions at SF 1's shard shape
+      and on an sf 0.002 mesh database (128 words a shard, shards of
+      padding only, a selection of nothing), whose 27 specs equal
+      ORACLE. A host profile of Q6 on the mesh. A table per query:
+      execute_ms on the mesh against single-device (timed in turns:
+      mesh, single, single, mesh), the shards' card time in turn on one
+      stream against
+      the single launch, each side's summed bound, launches. One DML
+      round (insert 32, delete 16, update 32 on lineitem), then Q6 equal
+      to the mutable table and lineitem sharded again. Where there are
+      two or more cards, a mesh over them too; else a line says it was
+      not run.
+   Then ``repro_torch.examples.tpch_analytics`` at sf 0.01 on the card:
+   every row it prints verified.
    Then every kernel against its plain version bit for bit at those SF 1
    shapes, and the times: first the timing floor (an empty kernel timed
    the same way, after a 64 MB write flush, a read flush and none); per
@@ -144,7 +171,8 @@ Phases (any failure exits non-zero before the last line):
    found equal): the paper's analytical model, not a measurement of the
    card.
 6. One ``{"kernels": [...]}`` JSON line (eight kernels; ``fused_program``
-   over the programs of paths a, b, f and g; launches of paths a-i), then
+   over the programs of paths a, b, f and g; launches of paths a-j and the
+   example), then
    ``{"ok": true, ...}`` last.
 
 Seeds fix the data; nothing is read from outside the checkout.
@@ -272,7 +300,8 @@ def programs(db, specs):
             rel = db.relations[rel_name]
             c, mask_reg, _ = db._compile_relation(rel, spec, pred)
             out.append((spec.name, rel, prog.compile_program(
-                rel, c.program, mask_outputs=(mask_reg,))))
+                rel, c.program, mask_outputs=(mask_reg,), mesh=db.mesh,
+                shard_axes=db.shard_axes)))
     return out
 
 
@@ -573,7 +602,8 @@ def host_programs(db):
             m = (c.compile_filter(pred, with_transform=False)
                  if pred is not None else c.compile_scan_all())
             c.compile_materialize(m, cols)
-            cp = prog.compile_program(rel, c.program, mask_outputs=())
+            cp = prog.compile_program(rel, c.program, mask_outputs=(),
+                                      mesh=db.mesh, shard_axes=db.shard_axes)
             out.append((name, rel, cp, c.program[-1]))
     if len(out) != N_HOST_PROGRAMS:
         fail(f"expected {N_HOST_PROGRAMS} Materialize programs, got "
@@ -2197,6 +2227,335 @@ def phase_chaos_soak() -> dict:
     return total
 
 
+# Path j: record-sharded relations on a mesh of the one card.
+MESH_SHAPE, MESH_AXES = (2, 4), ("pod", "data")
+MESH_BATCH = ("Q1", "Q6", "Q14", "Q19")
+
+
+def mesh_result_equal(label, spec, got, want) -> None:
+    """Rows, columns, materialized counts, aggregates and masks equal."""
+    if (got.rows, got.columns, got.materialized_rows, got.aggregates) != \
+            (want.rows, want.columns, want.materialized_rows,
+             want.aggregates):
+        fail(f"path j {label}: {spec.name} != the single-device result")
+    for rel in want.relations:
+        if not np.array_equal(got.relations[rel].mask,
+                              want.relations[rel].mask):
+            fail(f"path j {label}: {spec.name}/{rel} mask != single-device")
+
+
+def shard_programs_check(label, dbm, specs, flush, peaks, hosts=False,
+                         time_them=False) -> tuple[dict, int]:
+    """Each shard's ``fused_program`` (and, for host-stage specs, its
+    ``materialize``) against the plain version at the shard's shape, bit
+    for bit. With ``time_them``: per spec the card time of the shards'
+    launches in turn on one stream and the sum of their bounds. Returns
+    ({spec: (kernel_ms, bound_ms, materialize ms)}, worst diff)."""
+    from repro_torch.core import program as prog
+    from repro_torch.kernels import materialize as km
+    from repro_torch.kernels import program as kp
+    rows = host_programs(dbm) if hosts else [
+        (n, rel, cp, None) for n, rel, cp in programs(dbm, specs)]
+    out, worst = {}, 0
+    for name, rel, cp, ins in rows:
+        stacks = [prog.stack_sources(cp, rel, s) for s in range(rel.n_shards)]
+        mats = []
+        for s, st in enumerate(stacks):
+            got = kp.fused_program(st, cp.tape)
+            d = max_abs_diff(got, kp.fused_program_torch(st, cp.tape))
+            if d:
+                fail(f"path j {label}: fused_program != plain on {name}/"
+                     f"{rel.name} shard {s} ({tuple(st.shape)})")
+            worst = max(worst, d)
+            if ins is not None:
+                planes, valid = rel.shards()[s]
+                mask = (valid if ins.mask == "__valid__"
+                        else got[0][cp.kernel_masks.index(ins.mask)])
+                mp = [planes[a] for a in ins.attrs]
+                worst = max(worst, check_materialize(
+                    f"path j {label} {name}/{rel.name} shard {s}", mp,
+                    mask)[0])
+                mats.append((mp, mask))
+        if not time_them:
+            continue
+        logic, popc = cp.tape.word_ops()
+        bound = sum(bound_s((cp.tape.n_rows + cp.tape.n_masks)
+                            * st.shape[1] * 4, logic * st.shape[1],
+                            popc * st.shape[1], peaks)[0] for st in stacks)
+        k_ms = cuda_ms(lambda: [kp.fused_program(st, cp.tape)
+                                for st in stacks], 5, flush, ahead=True)
+        m_ms = (cuda_ms(lambda: [km.materialize(p, m) for p, m in mats], 5,
+                        flush, ahead=True) if mats else 0.0)
+        prev = out.get(name, (0.0, 0.0, 0.0))
+        out[name] = (prev[0] + k_ms, prev[1] + bound * 1e3, prev[2] + m_ms)
+    return out, worst
+
+
+def phase_mesh_path(db, path_a, path_b, flush, peaks) -> dict:
+    """Path j: ``PimDatabase(tables, mesh=make_mesh((2, 4), ("pod",
+    "data"), device="cuda"))`` over path a's tables, each relation split 8
+    ways on the one card. Path a's 21 specs, the six host specs, a linked
+    batch, the 5-request service smoke and Q6 on EAGER equal the
+    single-device results; a DML round then Q6 equals the mutable table;
+    ``distributed_filter_aggregate`` on lineitem equals numpy; each shard's
+    kernels equal plain at SF 1's shard shape and at sf 0.002's (128
+    words a shard, shards of padding only, shards selecting nothing).
+    Returns the path's launches and worst diffs."""
+    import asyncio
+    tables = db.tables
+    from repro_torch import dml
+    from repro_torch.core import distributed as dist
+    from repro_torch.db import database as D
+    from repro_torch.db import exec as E
+    from repro_torch.db import queries as Q
+    from repro_torch.db import tpch
+    from repro_torch.serve import QueryService
+
+    t_path = time.perf_counter()
+    total = dict.fromkeys(read_launches(), 0)
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    mesh = dist.make_mesh(MESH_SHAPE, MESH_AXES, device="cuda")
+    t0 = time.perf_counter()
+    dbm = D.PimDatabase(tables, mesh=mesh)
+    torch.cuda.synchronize()
+    li = dbm.relations["lineitem"]
+    print(f"path j: mesh {MESH_SHAPE} {MESH_AXES} on one card, "
+          f"{li.n_shards} shards; pack, copy and split "
+          f"{time.perf_counter() - t0:.1f} s; lineitem {li.layout.n_words} "
+          f"words, {li.shard_valid[0].shape[0]} a shard", flush=True)
+    n_sh = li.n_shards
+
+    specs = [s.filter_only() for s in Q.all_queries()] + minmax_specs()
+    reset_launches()
+    results = [dbm.execute(s) for s in specs]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_programs = sum(len(s.filters) for s in specs)
+    want = dict.fromkeys(launches, 0)
+    want["fused_program"] = n_programs * n_sh
+    if launches != want:
+        fail(f"path j specs: launches {launches}, expected {want}")
+    count(launches)
+    for spec, got in zip(specs, results):
+        mesh_result_equal("specs", spec, got, path_a["results"][spec.name])
+
+    hosts = [Q.get_query(n) for n in HOST_SPECS]
+    reset_launches()
+    h_results = [dbm.execute(s) for s in hosts]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want["fused_program"] = want["materialize"] = N_HOST_PROGRAMS * n_sh
+    if launches != want:
+        fail(f"path j host specs: launches {launches}, expected {want}")
+    count(launches)
+    for spec, got in zip(hosts, h_results):
+        mesh_result_equal("host specs", spec, got,
+                          path_b["results"][spec.name])
+    from repro_torch.db.compiler import Agg, Cmp, Col, Lit
+    avg = Q.QuerySpec("Qavg_empty", "full",
+                      filters={"customer": Cmp("gt", Col("c_acctbal"),
+                                               Lit(1 << 40))},
+                      agg_relation="customer",
+                      aggregates=[Agg("avg", Col("c_acctbal"), "avg_bal")])
+    reset_launches()
+    if dbm.execute(avg).aggregates != {"all": {"avg_bal": None}}:
+        fail("path j: Qavg_empty on the mesh is not None")
+    count(read_launches())
+    print(f"path j ok: {len(specs)} specs and {len(hosts)} host-stage specs "
+          f"== single-device (masks, aggregates, rows, materialized); "
+          f"Qavg_empty None; fused_program {n_programs} + "
+          f"{N_HOST_PROGRAMS} programs x {n_sh} shards", flush=True)
+
+    batch = [Q.get_query(n) for n in MESH_BATCH]
+    reset_launches()
+    b_results = dbm.execute(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    stats = dbm.last_batch_stats
+    rels = {r for s in batch for r in s.pim_relations()}
+    want = dict.fromkeys(launches, 0)
+    want["fused_program"] = len(rels) * n_sh
+    want["materialize"] = n_sh * sum(len(E.split_query(s)[0])
+                                     for s in batch if s.host is not None)
+    if stats["n_dispatches"] != 2 or launches != want:
+        fail(f"path j batch: n_dispatches {stats['n_dispatches']}, "
+             f"launches {launches}, expected 2 and {want}")
+    count(launches)
+    for spec, got in zip(batch, b_results):
+        src = path_b if spec.host is not None else path_a
+        mesh_result_equal("batch", spec, got, src["results"][spec.name])
+
+    trace = [Q.get_query(n) for n in ("Q1", "Q6", "Q14", "Q6", "Q1")]
+
+    async def serve():
+        async with QueryService(dbm, max_window=3, max_wait_s=0.005) as svc:
+            res = await asyncio.gather(*[svc.submit(s) for s in trace])
+            return res, svc.stats()
+
+    reset_launches()
+    served, sstats = asyncio.run(asyncio.wait_for(serve(), 300))
+    torch.cuda.synchronize()
+    count(read_launches())
+    if sstats["errors"] != 0 or sstats["coalesced"] != 2:
+        fail(f"path j service: {sstats['errors']} errors, "
+             f"{sstats['coalesced']} coalesced (expected 0 and 2)")
+    for spec, got in zip(trace, served):
+        src = path_b if spec.host is not None else path_a
+        mesh_result_equal("service", spec, got, src["results"][spec.name])
+    q6 = Q.get_query("Q6")
+    reset_launches()
+    e6 = dbm.execute(q6, engine="eager")
+    count(read_launches())
+    mesh_result_equal("eager", q6, e6, path_a["results"]["Q6"])
+    print(f"path j ok: batch {'+'.join(MESH_BATCH)} n_dispatches "
+          f"{stats['n_dispatches']}, fused_program {len(rels) * n_sh}, "
+          f"materialize {want['materialize']}; service 0 errors, "
+          f"{sstats['coalesced']} coalesced, {sstats['dispatches']} "
+          f"dispatches; Q6 EAGER on the gathered view == FUSED", flush=True)
+
+    # distributed_filter_aggregate: cmp_imm on each shard, int64 combine.
+    sd = li.shard_planes
+    lo, hi = 8000, 8365
+    run = dist.distributed_filter_aggregate(
+        mesh, dist.make_sum_where_program(lo, hi), MESH_AXES)
+    reset_launches()
+    pcs = run(tuple(p["l_shipdate"] for p in sd),
+              tuple(p["l_extendedprice"] for p in sd), li.shard_valid)
+    got = sum(int(pcs[b]) << b for b in range(pcs.shape[0]))
+    launches = read_launches()
+    count(launches)
+    cols = tables["lineitem"]
+    sel = (cols["l_shipdate"] >= lo) & (cols["l_shipdate"] < hi)
+    if got != int(cols["l_extendedprice"][sel].sum()) or \
+            launches["cmp_imm"] != 2 * n_sh:
+        fail(f"path j distributed_filter_aggregate: {got} != numpy or "
+             f"cmp_imm launches {launches['cmp_imm']} != {2 * n_sh}")
+
+    # Kernels against plain at the shards' shapes, and the times.
+    timed, d1 = shard_programs_check("SF 1", dbm, specs, flush, peaks,
+                                     time_them=True)
+    h_timed, d2 = shard_programs_check("SF 1", dbm, hosts, flush, peaks,
+                                       hosts=True, time_them=True)
+    small = D.PimDatabase(tpch.generate(sf=0.002, seed=SEED), mesh=mesh)
+    sv = small.relations["lineitem"].shard_valid
+    pad = sum(not bool(v.any()) for v in sv)
+    if sv[0].shape[0] != 128 or not pad:
+        fail(f"path j sf 0.002: {sv[0].shape[0]} words a shard, {pad} "
+             "shards of padding only (expected 128 and some)")
+    _, d3 = shard_programs_check("sf 0.002", small, specs, flush, peaks)
+    _, d4 = shard_programs_check("sf 0.002", small, hosts, flush, peaks,
+                                 hosts=True)
+    host_profile(dbm, specs[1])
+    for spec in specs + hosts:
+        got = small.execute(spec)
+        want_r = small.execute(spec, engine=D.Engine.ORACLE)
+        if (got.rows, got.aggregates) != (want_r.rows, want_r.aggregates):
+            fail(f"path j sf 0.002: {spec.name} != ORACLE")
+    print(f"path j ok: fused_program and materialize == plain on every "
+          f"shard of {len(specs) + len(hosts)} specs at SF {MAIN_SF} "
+          f"({li.shard_valid[0].shape[0]} words a shard) and at sf 0.002 "
+          f"(128 words a shard, {pad} of {n_sh} lineitem shards padding "
+          f"only, Qmm_empty selecting nothing); sf 0.002 == ORACLE; "
+          f"distributed_filter_aggregate == numpy", flush=True)
+
+    # execute_ms of both databases in turns (mesh, single, single, mesh),
+    # both warm, to a host read-back.
+    def wall_ms(d, spec) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d.execute(spec)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    print("query     mesh_execute_ms    single_execute_ms  shards_kernel_ms  "
+          "single_kernel_ms  shards_bound_ms  single_bound_ms  "
+          "shards_mat_ms  launches")
+    for spec in specs + hosts:
+        m1, s1, s2, m2 = (wall_ms(d, spec) for d in (dbm, db, db, dbm))
+        ps = (path_b if spec.host is not None else path_a)["by_query"][
+            spec.name]
+        k_ms, b_ms, m_ms = (timed if spec.host is None else h_timed)[
+            spec.name]
+        sb = sum(bound_s(p["bytes"], p["logic"], p["popc"], peaks)[0]
+                 for p in ps) * 1e3
+        n_launch = len(ps) * n_sh * (2 if spec.host is not None else 1)
+        print(f"{spec.name:9s} {m1:8.3f}/{m2:8.3f} {s1:9.3f}/{s2:9.3f} "
+              f"{k_ms:17.4f} {sum(p['kernel_ms'] for p in ps):17.4f} "
+              f"{b_ms:16.5f} {sb:16.5f} {m_ms:14.4f} {n_launch:9d}",
+              flush=True)
+
+    # One DML round on the mesh, then Q6 against the mutable table.
+    spec6 = Q.get_query("Q6")
+    oracle = dml.MutableTable(dbm.tables["lineitem"])
+    live = dbm.dml_state("lineitem").live_ids()
+    take = {a: np.asarray(c[:32]) for a, c in dbm.tables["lineitem"].items()}
+    reset_launches()
+    t0 = time.perf_counter()
+    dbm.apply([dml.Insert("lineitem", take),
+               dml.Delete("lineitem", row_ids=live[:16]),
+               dml.Update("lineitem", {"l_quantity": 9},
+                          row_ids=live[16:48])])
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    oracle.insert(take)
+    oracle.delete(row_ids=list(range(16)))
+    oracle.update({"l_quantity": 9}, row_ids=list(range(16, 48)))
+    r6 = dbm.execute(spec6)
+    count(read_launches())
+    exp = oracle.aggregate(spec6.filters["lineitem"], spec6.aggregates)
+    if tuple(r6.aggregates["all"][a.name] for a in spec6.aggregates) != exp:
+        fail(f"path j DML: Q6 {r6.aggregates} != MutableTable {exp}")
+    rel = dbm.relations["lineitem"]
+    if not isinstance(rel, dist.ShardedRelation) or rel.n_shards != n_sh:
+        fail("path j DML: publish did not shard lineitem again")
+    print(f"path j ok: DML round (insert 32, delete 16, update 32) on the "
+          f"mesh {apply_ms:.3f} ms, re-sharded {rel.n_shards} ways, Q6 == "
+          f"MutableTable", flush=True)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = dist.make_mesh((n_cards,), ("data",),
+                               devices=[f"cuda:{i}" for i in range(n_cards)])
+        dbc = D.PimDatabase(tables, mesh=cards)
+        for name in ("Q1", "Q6", "Q14"):
+            spec = Q.get_query(name)
+            src = path_b if spec.host is not None else path_a
+            mesh_result_equal("distinct cards", spec, dbc.execute(spec),
+                              src["results"][name])
+        print(f"path j ok: mesh over {n_cards} distinct cards, Q1/Q6/Q14 "
+              "== single-device", flush=True)
+    else:
+        print("path j: mesh over distinct cards not run (one GPU)",
+              flush=True)
+    print(f"phase 4j ok: launches {total}; "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
+    return {"launches": total, "worst": max(d1, d2, d3, d4)}
+
+
+def phase_example() -> dict:
+    """``repro_torch.examples.tpch_analytics.main`` at sf 0.01 on the card:
+    every row it prints must be verified. Returns its launches."""
+    from repro_torch.examples import tpch_analytics
+    t0 = time.perf_counter()
+    reset_launches()
+    out = tpch_analytics.main(["--sf", "0.01"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if not out["ok"]:
+        fail(f"examples.tpch_analytics at sf 0.01: not every row verified "
+             f"({[n for n, ok in out['rows'] if not ok]})")
+    print(f"phase example ok: repro_torch.examples.tpch_analytics --sf 0.01 "
+          f"on the card, {len(out['rows'])} rows, Q3 end to end, the batch, "
+          f"the served stream and the HTAP round verified; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def lint_on_card() -> None:
     """``repro_torch.analysis.lint`` with its database and DML writes on
     the card, at SF 0.002: it prints its totals; 0 errors or the run
@@ -2278,21 +2637,29 @@ def main() -> None:
     lint_on_card()
     h_launches = phase_query_service(db, path_a, path_b)
     i_launches = phase_chaos_soak()
+    path_j = phase_mesh_path(db, path_a, path_b, flush, peaks)
+    ex_launches = phase_example()
+    j_launches = {k: v + ex_launches[k]
+                  for k, v in path_j["launches"].items()}
     phase_cost_model(db, path_a["results"], eager)
     fused = fused_entry([path_a, path_b, path_f, path_g], peaks)
-    fused["max_abs_err"] = max(worst, fused["max_abs_err"])
+    fused["max_abs_err"] = max(worst, fused["max_abs_err"],
+                               path_j["worst"])
     fused["launches"] += h_launches["fused_program"] + \
-        i_launches["fused_program"]
+        i_launches["fused_program"] + j_launches["fused_program"]
     mat["launches"] += mat_f + g_launches["materialize"] + \
-        h_launches["materialize"] + i_launches["materialize"]
-    mat["max_abs_err"] = max(mat_worst, mat["max_abs_err"], g_mat_worst)
+        h_launches["materialize"] + i_launches["materialize"] + \
+        j_launches["materialize"]
+    mat["max_abs_err"] = max(mat_worst, mat["max_abs_err"], g_mat_worst,
+                             path_j["worst"])
     for c in cols:
         c["launches"] += (g_launches[c["name"]] + h_launches[c["name"]]
-                          + i_launches[c["name"]])
+                          + i_launches[c["name"]] + j_launches[c["name"]])
         c["max_abs_err"] = max(col_worst, c["max_abs_err"])
     for a in api:
         a["launches"] += (eager_launches[a["name"]] + g_launches[a["name"]]
-                          + h_launches[a["name"]] + i_launches[a["name"]])
+                          + h_launches[a["name"]] + i_launches[a["name"]]
+                          + j_launches[a["name"]])
         a["max_abs_err"] = max(
             a["max_abs_err"], filt_worst["filter_sum"]
             if a["name"] == "filter_sum" else max(filt_worst["filter"],

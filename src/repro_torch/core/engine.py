@@ -21,8 +21,11 @@ runs as torch ops, as the reference runs it in jnp. It also executes the
 DML writes (``PlaneWrite``, ``ValidClear``) of ``dml``: a masked merge of
 host-built row masks, as torch ops on the relation's device (the
 reference computes it in jnp outside any kernel), through the
-process-wide write-fault hook of ``faults`` when one is installed. Not
-ported yet: ``PimRelation.shard`` (ROADMAP A14).
+process-wide write-fault hook of ``faults`` when one is installed.
+
+:meth:`PimRelation.shard` splits a relation along its word axis over a
+mesh (``core.distributed``); :class:`Engine` runs on the gathered view of
+a sharded relation, built once when the engine is made.
 """
 from __future__ import annotations
 
@@ -461,6 +464,33 @@ class PimRelation:
         """A copy with the content version advanced."""
         return dataclasses.replace(self, version=self.version + 1)
 
+    # An unsharded relation is one shard on its device
+    # (``core.distributed.ShardedRelation`` overrides these).
+    mesh = None
+    shard_axes = None
+    n_shards = 1
+
+    def shards(self) -> List[Tuple[Mapping[str, torch.Tensor],
+                                   torch.Tensor]]:
+        """``(planes, valid)`` of each shard, in shard order."""
+        return [(self.planes, self.valid)]
+
+    def gathered(self) -> "PimRelation":
+        """The whole relation as one unsharded relation."""
+        return self
+
+    def shard(self, mesh, shard_axes=None) -> "PimRelation":
+        """A copy with every plane and the valid plane split along the
+        word axis over ``shard_axes`` of ``mesh`` (default: every mesh
+        axis), the paper's pages-across-modules placement
+        (``core.distributed``). The word count is a multiple of
+        ``TILE_WORDS`` (1,024), so any power-of-two shard count up to it
+        divides it."""
+        from . import distributed as dist   # lazy: it imports this module
+        return dist.ShardedRelation(
+            self.name, self.layout, self.planes, self.valid, self.n_records,
+            self.version, mesh, dist.mesh_shard_axes(mesh, shard_axes))
+
 
 def relation_from_numpy(name: str, layout: bitslice.RelationLayout,
                         planes: Mapping[str, np.ndarray], valid: np.ndarray,
@@ -486,8 +516,8 @@ class Engine:
     """
 
     def __init__(self, relation: PimRelation):
-        self.rel = relation
-        self.masks: Dict[str, torch.Tensor] = {"__valid__": relation.valid}
+        self.rel = relation.gathered()
+        self.masks: Dict[str, torch.Tensor] = {"__valid__": self.rel.valid}
         self.derived: Dict[str, object] = {}  # planes, or a reduce's int
         self.found: Dict[str, bool] = {}      # ReduceMinMax non-empty flags
         self.materialized: Dict[str, Dict[str, np.ndarray]] = {}

@@ -26,13 +26,19 @@ verifier (``analysis.passes.verify_compile``, the ``"fused"`` backend) over
 the plan, so a program the passes reject raises
 ``ProgramVerificationError`` before any tape is recorded or launched.
 
-Left out so far: sharding (ROADMAP A14).
+Compiled with a ``mesh`` (``core.distributed``), the same tape runs on a
+relation split over the mesh's shard axes: one program launch a shard over
+that shard's words, the shards' popcounts summed, their MIN/MAX candidates
+combined, each shard's masks and materialized values left on its device
+until the host reads them (``ProgramResult`` stitches them in shard
+order). ``n_dispatches`` stays 1, the reference's logical count.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import hashlib
+import math
 import os
 import threading
 from typing import (Callable, Dict, FrozenSet, List, Mapping, Optional,
@@ -45,6 +51,7 @@ from repro_torch.kernels import materialize as kmat
 from repro_torch.kernels import program as kprog
 from . import bitslice, isa
 from . import engine as eng
+from .distributed import Mesh, combine_minmax_candidates, mesh_shard_axes
 
 _REDUCE_KINDS = ("ReduceSum", "ReduceMinMax")
 _DERIVED_KINDS = ("AddImm", "Add", "Subtract", "Multiply")
@@ -315,27 +322,6 @@ def _reduce_minmax_bits(planes, mask, is_max: bool,
     for b in range(len(planes) - 1, -1, -1):
         cand = rec.narrow(cand, planes[b], is_max, col_start + b)
     rec.any(mask, col_start + len(planes))
-
-
-def combine_minmax_candidates(bits: torch.Tensor, found: torch.Tensor,
-                              is_max: bool):
-    """MIN/MAX candidate combine, exact at any bit width.
-
-    ``bits`` is ``(n_candidates, n_bits)`` int32 per-candidate extremum
-    bits (LSB-first), ``found`` is ``(n_candidates,)`` bool. MSB-first
-    narrowing over the candidate axis (here: the kernel's tiles).
-    Returns ``((n_bits,) int32 extremum bits, () bool any-found)``.
-    """
-    n_bits = bits.shape[1]
-    cand = found
-    out = [None] * n_bits
-    for b in range(n_bits - 1, -1, -1):
-        vb = bits[:, b] != 0
-        t = cand & vb if is_max else cand & ~vb
-        has = torch.any(t)
-        out[b] = (has if is_max else ~has).to(torch.int32)
-        cand = torch.where(has, t, cand)
-    return torch.stack(out), torch.any(found)
 
 
 # --------------------------------------------------------------------------
@@ -807,14 +793,18 @@ def program_cache_stats() -> Dict[str, int]:
 
 def program_signature(instrs: Tuple[isa.PimInstruction, ...],
                       mask_outputs: Tuple[str, ...],
-                      widths: Mapping[str, int]) -> tuple:
+                      widths: Mapping[str, int],
+                      mesh: Optional[Mesh] = None,
+                      shard_axes: Optional[Tuple[str, ...]] = None) -> tuple:
     """The static signature a tape is cached under: everything that can
     change the recorded tape — instruction stream, requested outputs and
-    the source widths that fix the stacked row layout — and nothing else.
+    the source widths that fix the stacked row layout — and the mesh and
+    shard axes, as in the reference (a mesh and no mesh are two entries).
     The relation's word count and content do not shape the tape, and a
     linked program's ``query_slots`` are demux metadata, left out so that a
     recurring batch hits the cache on its linked instructions alone."""
-    return (instrs, mask_outputs, tuple(sorted(widths.items())))
+    return (instrs, mask_outputs, tuple(sorted(widths.items())), mesh,
+            shard_axes)
 
 
 @dataclasses.dataclass
@@ -840,11 +830,22 @@ class CompiledProgram:
     # Per-query output wiring of a linked multi-query program (empty for a
     # single query's program).
     query_slots: Tuple[QuerySlot, ...] = ()
+    # The mesh and shard axes the program runs over (None: one device).
+    mesh: Optional[Mesh] = None
+    shard_axes: Optional[Tuple[str, ...]] = None
 
     @property
     def n_dispatches(self) -> int:
-        """Kernel launches per execution — the fusion headline."""
+        """Logical dispatches per execution — the fusion headline, 1 as
+        in the reference; a sharded run makes :attr:`n_shards` launches."""
         return 1
+
+    @property
+    def n_shards(self) -> int:
+        """Shards the program runs over: program launches per run."""
+        if self.mesh is None:
+            return 1
+        return math.prod(self.mesh.axis_size(a) for a in self.shard_axes)
 
     @property
     def n_queries(self) -> int:
@@ -893,6 +894,11 @@ class CompiledProgram:
         return sum(i.cycles() for i in self.instrs)
 
 
+def _stitch(parts: List[np.ndarray], axis: int = 0) -> np.ndarray:
+    """The shards' host copies in shard order (one shard: no copy)."""
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
+
+
 class ProgramResult:
     """Outputs of one fused launch; exact host-side finalisation."""
 
@@ -903,19 +909,24 @@ class ProgramResult:
         self._n = n_records
 
     def mask_packed(self, name: str) -> np.ndarray:
-        return self._raw["masks"][name]
+        """The packed mask, each shard's words copied off its device and
+        concatenated in shard order."""
+        return _stitch([eng.to_words(m) for m in self._raw["masks"][name]])
 
     def materialized_count(self, name: str) -> int:
-        """Selected-record count of one Materialize output."""
-        return int(self._raw["mat_cnt"][name])
+        """Selected-record count of one Materialize output (all shards)."""
+        return sum(int(c) for c in self._raw["mat_cnt"][name])
 
     def materialized(self, name: str) -> Dict[str, np.ndarray]:
         """Decoded column values of one Materialize output: ``{attr:
-        (count,) int32 array}`` in record order. The value buffer stays
-        on the device; one sync reads the count and only the
-        ``count``-column prefix is copied to the host."""
-        n = self.materialized_count(name)
-        dense = self._raw["mat_vals"][name][:, :n].cpu().numpy()
+        (count,) int32 array}`` in record order. Each shard's value buffer
+        stays on its device; one sync a shard reads its count and only its
+        ``count``-column prefix is copied to the host, the prefixes
+        concatenated in shard order."""
+        dense = _stitch([v[:, :int(c)].cpu().numpy()
+                         for v, c in zip(self._raw["mat_vals"][name],
+                                         self._raw["mat_cnt"][name])],
+                        axis=1)
         attrs = self._cp.mat_attrs[name]
         return {a: dense[i] for i, a in enumerate(attrs)}
 
@@ -975,7 +986,9 @@ class QueryView:
 def compile_program(relation: eng.PimRelation,
                     program: Sequence[isa.PimInstruction],
                     mask_outputs: Sequence[str] = (),
-                    query_slots: Sequence[QuerySlot] = ()
+                    query_slots: Sequence[QuerySlot] = (),
+                    mesh: Optional[Mesh] = None,
+                    shard_axes: Optional[Sequence[str]] = None
                     ) -> CompiledProgram:
     """Plan a whole relation program and lower it to one kernel tape.
 
@@ -984,8 +997,12 @@ def compile_program(relation: eng.PimRelation,
     ``Materialize`` destination a device-resident value output.
     ``query_slots`` (from :func:`link_programs`) is demux metadata for a
     linked multi-query program; it does not shape the tape and is not part
-    of the cache signature.
+    of the cache signature. With ``mesh`` the program runs on a relation
+    sharded over ``shard_axes`` (default: every mesh axis), one launch a
+    shard (:func:`run_program`).
     """
+    if mesh is not None:
+        shard_axes = mesh_shard_axes(mesh, shard_axes)
     instrs = tuple(program)
     mask_outputs = tuple(mask_outputs)
     scalar_kinds: Dict[str, tuple] = {}
@@ -1017,7 +1034,7 @@ def compile_program(relation: eng.PimRelation,
     kernel_attrs = tuple(a for a in analysis.source_attrs
                          if a in kernel_reads)
 
-    sig = program_signature(instrs, mask_outputs, widths)
+    sig = program_signature(instrs, mask_outputs, widths, mesh, shard_axes)
     tape = _FN_CACHE.get(sig)
     if tape is None:
         # Static verification rides the cache miss: every program is
@@ -1032,36 +1049,51 @@ def compile_program(relation: eng.PimRelation,
         _FN_CACHE.put(sig, tape)
     return CompiledProgram(instrs, mask_outputs, scalar_kinds, analysis,
                            plan, arith, tape, dict(widths), mat_attrs,
-                           kernel_masks, kernel_attrs, tuple(query_slots))
+                           kernel_masks, kernel_attrs, tuple(query_slots),
+                           mesh, shard_axes)
 
 
-def stack_sources(cp: CompiledProgram,
-                  relation: eng.PimRelation) -> torch.Tensor:
-    """The program kernel's input, ``(rows, W)``: the planes of every
-    attribute in ``cp.kernel_attrs`` (the tape's row order), then the
-    valid plane."""
-    return torch.cat([relation.planes[a] for a in cp.kernel_attrs]
-                     + [relation.valid[None]])
+def stack_sources(cp: CompiledProgram, relation: eng.PimRelation,
+                  shard: int = 0) -> torch.Tensor:
+    """The program kernel's input over one shard of ``relation`` (the
+    whole of an unsharded one), ``(rows, W / n_shards)``: the planes of
+    every attribute in ``cp.kernel_attrs`` (the tape's row order), then
+    the valid plane."""
+    planes, valid = relation.shards()[shard]
+    return torch.cat([planes[a] for a in cp.kernel_attrs] + [valid[None]])
 
 
 def run_program(cp: CompiledProgram, relation: eng.PimRelation
                 ) -> ProgramResult:
     """Execute a compiled program: ONE kernel launch for the whole
-    relation program, one materialize launch per ``Materialize``, then
-    exact host-side weighting of the popcounts. The materialized values
-    stay on the device (``ProgramResult.materialized`` copies out only
-    the ``count``-column prefix)."""
-    masks, pc, mm = kprog.fused_program(stack_sources(cp, relation), cp.tape)
-    mat_vals: Dict[str, torch.Tensor] = {}
-    mat_cnt: Dict[str, torch.Tensor] = {}
+    relation program (one a shard on a sharded relation), one materialize
+    launch per ``Materialize`` (and shard), then exact host-side weighting
+    of the popcounts. The shards' popcounts are summed in int64 and their
+    MIN/MAX candidates combined on the first shard's device; masks and
+    materialized values stay on each shard's device until
+    :class:`ProgramResult` reads them."""
+    if (relation.mesh, relation.shard_axes) != (cp.mesh, cp.shard_axes):
+        raise ValueError(
+            f"program compiled for mesh {cp.mesh} over {cp.shard_axes}, "
+            f"relation {relation.name!r} on {relation.mesh} over "
+            f"{relation.shard_axes}")
+    parts = relation.shards()
+    outs = [kprog.fused_program(stack_sources(cp, relation, s), cp.tape)
+            for s in range(len(parts))]
+    mat_vals: Dict[str, List[torch.Tensor]] = {}
+    mat_cnt: Dict[str, List[torch.Tensor]] = {}
     for ins in cp.instrs:
         if ins.kind == "Materialize":
-            mask = (relation.valid if ins.mask == "__valid__"
-                    else masks[cp.kernel_masks.index(ins.mask)])
-            mat_vals[ins.dest], mat_cnt[ins.dest] = kmat.materialize(
-                [relation.planes[a] for a in ins.attrs], mask)
-    masks = eng.to_words(masks[:len(cp.mask_outputs)])
-    pc, mm = pc.cpu().numpy(), mm.cpu()
+            mat_vals[ins.dest], mat_cnt[ins.dest] = [], []
+            for (planes, valid), (masks, _, _) in zip(parts, outs):
+                mask = (valid if ins.mask == "__valid__"
+                        else masks[cp.kernel_masks.index(ins.mask)])
+                v, c = kmat.materialize([planes[a] for a in ins.attrs], mask)
+                mat_vals[ins.dest].append(v)
+                mat_cnt[ins.dest].append(c)
+    dev = parts[0][1].device
+    pc = sum(o[1].to(dev) for o in outs).cpu().numpy()
+    mm = torch.cat([o[2].to(dev) for o in outs]).cpu()
     job_pc = [pc[job.col_start:job.col_start + job.n_cols]
               .reshape(job.width, len(job.masks)).T
               for job in cp.plan.sum_jobs]
@@ -1073,7 +1105,8 @@ def run_program(cp: CompiledProgram, relation: eng.PimRelation
             mm[:, mj.col_start + mj.width] != 0, mj.is_max)
         mm_bits[mj.dest] = bits.numpy()
         mm_found[mj.dest] = bool(found)
-    raw = {"masks": {m: masks[k] for k, m in enumerate(cp.mask_outputs)},
+    raw = {"masks": {m: [o[0][k] for o in outs]
+                     for k, m in enumerate(cp.mask_outputs)},
            "job_pc": job_pc, "mm_bits": mm_bits, "mm_found": mm_found,
            "mat_vals": mat_vals, "mat_cnt": mat_cnt}
     return ProgramResult(cp, raw, relation.n_records)

@@ -36,6 +36,12 @@ them: each mutated relation's version goes up once, ``tables`` follows
 the live rows, and the accumulated write pressure reaches
 ``PimDatabase.report``.
 
+``PimDatabase(tables, mesh=...)`` shards every PIM-resident relation along
+its word axis over the mesh (``core.distributed``) at load and after each
+``publish``; FUSED then runs one program launch a shard and combines the
+shards on the host, EAGER and the DML write path run on the gathered
+relation, and results equal the single-device ones.
+
 ``PimDatabase.report`` / :func:`cost_report` project a run to paper scale
 through the analytical cost model (``core.cost_model``: cycles, read
 traffic, latency, energy and endurance at any scale factor).
@@ -252,14 +258,25 @@ class _BatchQuery:
 class PimDatabase:
     """The PIM-resident relations of ``tables`` as bit-planes on
     ``device`` (default ``"cuda"``; it raises where CUDA is unavailable
-    rather than running anywhere else). ``wear_policy`` is the DML write
-    path's slot allocation policy for append segments: ``"rotate"``
-    (wear-leveled) or ``"first_fit"`` (the unleveled strawman)."""
+    rather than running anywhere else). With ``mesh`` (a
+    ``core.distributed.Mesh``) every relation is split along its word axis
+    over ``shard_axes`` (default: every mesh axis) onto the mesh's
+    devices, and ``device`` defaults to the mesh's first. ``wear_policy``
+    is the DML write path's slot allocation policy for append segments:
+    ``"rotate"`` (wear-leveled) or ``"first_fit"`` (the unleveled
+    strawman)."""
 
     def __init__(self, tables: Dict[str, Dict[str, np.ndarray]],
-                 device: Union[str, torch.device] = "cuda",
-                 wear_policy: str = "rotate"):
-        self.device = torch.device(device)
+                 device: Union[str, torch.device, None] = None,
+                 mesh=None, shard_axes=None, wear_policy: str = "rotate"):
+        self.mesh = mesh
+        self.shard_axes = None
+        if mesh is not None:
+            from repro_torch.core import distributed as dist
+            self.shard_axes = dist.mesh_shard_axes(mesh, shard_axes)
+            if device is None:
+                device = mesh.devices[0]
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"PimDatabase on {self.device}: torch.cuda.is_available() "
@@ -277,8 +294,11 @@ class PimDatabase:
         for name, cols in tables.items():
             if S.SCHEMA[name].in_pim:
                 enc = {a.name: a.encoding for a in S.SCHEMA[name].attrs}
-                self.relations[name] = eng.PimRelation.from_columns(
+                rel = eng.PimRelation.from_columns(
                     name, cols, encodings=enc, device=self.device)
+                if mesh is not None:
+                    rel = rel.shard(mesh, self.shard_axes)
+                self.relations[name] = rel
 
     # -- PIM execution ------------------------------------------------------
     def _compile_relation(self, rel: eng.PimRelation, spec: Q.QuerySpec,
@@ -399,7 +419,9 @@ class PimDatabase:
             cp = None
             if fused:
                 cp = prog.compile_program(rel, c.program,
-                                          mask_outputs=(mask_reg,))
+                                          mask_outputs=(mask_reg,),
+                                          mesh=self.mesh,
+                                          shard_axes=self.shard_axes)
                 t0 = time.perf_counter()
                 res = prog.run_program(cp, rel)
                 dt = time.perf_counter() - t0
@@ -453,7 +475,9 @@ class PimDatabase:
                         if pred is not None else c.compile_scan_all())
             mat_reg = c.compile_materialize(mask_reg, cols)
             if fused:
-                cp = prog.compile_program(rel, c.program, mask_outputs=())
+                cp = prog.compile_program(rel, c.program, mask_outputs=(),
+                                          mesh=self.mesh,
+                                          shard_axes=self.shard_axes)
                 t1 = time.perf_counter()
                 vals = prog.run_program(cp, rel).materialized(mat_reg)
                 rel_stats[rel_name] = _single_relation_stats(
@@ -547,7 +571,8 @@ class PimDatabase:
             lp = prog.link_programs(programs, relation=rel)
             cp = prog.compile_program(rel, lp.instrs,
                                       mask_outputs=lp.mask_outputs,
-                                      query_slots=lp.slots)
+                                      query_slots=lp.slots, mesh=self.mesh,
+                                      shard_axes=self.shard_axes)
             t0 = time.perf_counter()
             res = prog.run_program(cp, rel)
             pim_wall[rel_name] = time.perf_counter() - t0
@@ -578,6 +603,7 @@ class PimDatabase:
                     "agg_plane_reads": compiled[r].agg_plane_reads,
                     "source_plane_reads": compiled[r].source_plane_reads,
                     "linked_key": linked[r].cache_key,
+                    "program_launches": compiled[r].n_shards,
                     "pim_s": pim_wall[r]}
                 for r in rel_programs},
         }
@@ -748,7 +774,8 @@ class PimDatabase:
         construction) and re-point ``self.tables`` at the live rows
         (logical-id order), keeping the ORACLE path in step. The tables
         dict is shallow-copied first: several databases may share one.
-        Returns ``{name: new_version}``."""
+        With a mesh the relation is sharded again. Returns ``{name:
+        new_version}``."""
         self.tables = dict(self.tables)
         versions: Dict[str, int] = {}
         for name in rel_names:
@@ -756,6 +783,8 @@ class PimDatabase:
             version = max(d.rel.version,
                           self.relations[name].version) + 1
             rel = dataclasses.replace(d.rel, version=version)
+            if self.mesh is not None:
+                rel = rel.shard(self.mesh, self.shard_axes)
             self.relations[name] = rel
             d.rel = rel
             self.tables[name] = d.live_columns()
@@ -824,8 +853,9 @@ def _empty_batch_stats() -> Dict[str, object]:
 
 def _single_relation_stats(c: Compiler, cp: prog.CompiledProgram,
                            pim_s: float) -> Dict[str, object]:
-    """Per-relation stats of one single-query launch (zero dedup, one
-    program), plus the tape's length and slot count."""
+    """Per-relation stats of one single-query dispatch (zero dedup, one
+    program), plus the port's own: program launches (one a shard), the
+    tape's length and slot count."""
     n = len(c.program)
     return {"n_programs": 1, "instrs_unlinked": n, "instrs_linked": n,
             "instrs_deduped": 0,
@@ -833,7 +863,7 @@ def _single_relation_stats(c: Compiler, cp: prog.CompiledProgram,
             "agg_plane_reads": cp.agg_plane_reads,
             "source_plane_reads": cp.source_plane_reads,
             "linked_key": None, "pim_s": pim_s,
-            "tape_len": len(cp.tape), "n_slots": cp.tape.n_slots}
+            "program_launches": cp.n_shards, "tape_len": len(cp.tape), "n_slots": cp.tape.n_slots}
 
 
 def avg_value(pair) -> Optional[float]:

@@ -1,7 +1,8 @@
 """Port: mutable relations (``repro_torch.dml``).
 
-The cases of ``tests/test_dml.py`` on the port's modules (all but its
-8-device mesh smoke test, which waits for the port's multi-device path):
+The cases of ``tests/test_dml.py`` on the port's modules (its 8-device
+mesh smoke test is ``tests/test_torch_distributed.py::
+test_dml_mesh_smoke``):
 the allocator (policies, tile growth, the replayable wear
 counterfactual), ``RelationDml`` plane-level readback against the NumPy
 mutable-table oracle (insert / delete / update in place / widening

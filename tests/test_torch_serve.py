@@ -1,9 +1,9 @@
 """Port: the async serving front end (``repro_torch.serve``) and the
 trace-replay driver (``repro_torch.launch.serve``).
 
-The cases of ``tests/test_serve.py`` on the port's modules (all but its
-8-device mesh smoke test, which waits for the port's multi-device path),
-on the CPU (the kernels' plain versions): the version-keyed result cache
+The cases of ``tests/test_serve.py`` on the port's modules (its 8-device
+mesh smoke test is ``tests/test_torch_distributed.py::
+test_serve_mesh_smoke``), on the CPU (the kernels' plain versions): the version-keyed result cache
 and its key, the admission batcher, ``_pct``, cache hit / version
 invalidation through ``submit``, in-flight coalescing, concurrent-submit
 parity with sequential ``execute``, the EAGER engine, backpressure, the
