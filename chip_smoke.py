@@ -151,7 +151,35 @@ Phases (any failure exits non-zero before the last line):
       two or more cards, a mesh over them too; else a line says it was
       not run.
    Then ``repro_torch.examples.tpch_analytics`` at sf 0.01 on the card:
-   every row it prints verified.
+   every row it prints verified; then
+   ``repro_torch.examples.analytics_guided_serving``: its admission
+   filter over 50,000 bit-sliced requests (``eq_imm``/``cmp_imm`` on the
+   card) equal to numpy's count, its qwen2 smoke batch decoded (4, 13).
+   k. The LM serving path (``repro_torch.models``, ``launch.serve``), each
+      architecture built with bf16 weights from a seeded generator, used
+      and freed before the next; one line each: layers run, parameter
+      bytes, seconds, tok/s, the gaps below and the card's name and power
+      limit. k1: ``serve(qwen2-0.5b, batch=4, prompt_len=1, gen_len=16)``
+      at full width and depth, twice (cold, warm; the same tokens): shape
+      (4, 17), ids in [0, vocab); teacher-forced decode of the sequence
+      against ``forward`` within the reference's bf16 tolerance
+      max(0.01 x max|logits|, 0.25). k2: those weights in float32 (TF32
+      off), on a (2, 16) batch: decode against forward on the card, then
+      forward and 4 greedy decode steps on the card against the CPU, each
+      within 1e-3 x max(1, max|logits|), the same greedy tokens. k3: every
+      other block pattern at full width, cut in depth (gemma2-9b 2 layers,
+      olmoe-1b-7b 2, paligemma-3b 2 with its 256 vision-stub tokens,
+      qwen1.5-0.5b 2, stablelm-3b 2, whisper-small 12 + 12 encoding 64
+      frames, xlstm-1.3b 8, zamba2-7b 7): forward on (2, 16), 16
+      teacher-forced and 16 greedy decode steps, finite logits; for the
+      dense and gemma2 patterns the bf16 decode-forward gap is printed
+      beside that tolerance and the float32 gap must meet 1e-3 x max(1,
+      max|logits|) (at gemma2's head width the reference's own bf16 gap
+      exceeds the smoke tolerance: ``tests/test_torch_lm.py::
+      test_bf16_decode_gap_at_gemma2_head_width``); then k2's card-against-
+      CPU check in float32. llama4-maverick is left out with its reason
+      printed (one MoE layer alone is 32 GB in bf16). No kernel of the
+      table runs on path k.
    Then every kernel against its plain version bit for bit at those SF 1
    shapes, and the times: first the timing floor (an empty kernel timed
    the same way, after a 64 MB write flush, a read flush and none); per
@@ -172,7 +200,7 @@ Phases (any failure exits non-zero before the last line):
    card.
 6. One ``{"kernels": [...]}`` JSON line (eight kernels; ``fused_program``
    over the programs of paths a, b, f and g; launches of paths a-j and the
-   example), then
+   examples), then
    ``{"ok": true, ...}`` last.
 
 Seeds fix the data; nothing is read from outside the checkout.
@@ -2538,8 +2566,12 @@ def phase_mesh_path(db, path_a, path_b, flush, peaks) -> dict:
 
 
 def phase_example() -> dict:
-    """``repro_torch.examples.tpch_analytics.main`` at sf 0.01 on the card:
-    every row it prints must be verified. Returns its launches."""
+    """The examples on the card: ``repro_torch.examples.tpch_analytics.main``
+    at sf 0.01 (every row it prints must be verified), then
+    ``analytics_guided_serving.main`` (its admission mask over 50,000
+    requests through ``eq_imm``/``cmp_imm`` must equal numpy's, its qwen2
+    smoke batch decodes). Returns their launches, summed."""
+    from repro_torch.examples import analytics_guided_serving as ags
     from repro_torch.examples import tpch_analytics
     t0 = time.perf_counter()
     reset_launches()
@@ -2553,7 +2585,232 @@ def phase_example() -> dict:
           f"on the card, {len(out['rows'])} rows, Q3 end to end, the batch, "
           f"the served stream and the HTAP round verified; launches "
           f"{launches}; {time.perf_counter() - t0:.1f} s", flush=True)
-    return launches
+    t0 = time.perf_counter()
+    reset_launches()
+    served = ags.main([])
+    torch.cuda.synchronize()
+    served_launches = read_launches()
+    q = ags.make_queue()
+    want = int((np.isin(q["tier"], (2, 3)) & (q["prompt_len"] <= 4096)
+                & (q["rate_bucket"] < 80)).sum())
+    if served["admitted"] != want or served["shape"] != (4, 13):
+        fail(f"examples.analytics_guided_serving: admitted "
+             f"{served['admitted']} (numpy {want}), decoded "
+             f"{served['shape']} (want (4, 13))")
+    if not served_launches["eq_imm"] or not served_launches["cmp_imm"]:
+        fail(f"examples.analytics_guided_serving: the admission filter did "
+             f"not reach eq_imm and cmp_imm ({served_launches})")
+    print(f"phase example ok: repro_torch.examples.analytics_guided_serving "
+          f"on the card, {served['admitted']} of {ags.N_REQ} admitted == "
+          f"numpy, decoded {served['shape']}; launches {served_launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: v + served_launches[k] for k, v in launches.items()}
+
+
+# -- path k: the LM serving path ----------------------------------------------
+# k3's architectures at full width, each cut in depth to fit the time limit
+# (None: all layers). llama4-maverick is left out: one of its MoE layers
+# alone holds 3 x 128 x 5,120 x 8,192 expert weights (32 GB in bf16).
+LM_CUTS = (("gemma2-9b", 2), ("olmoe-1b-7b", 2), ("paligemma-3b", 2),
+           ("qwen1.5-0.5b", 2), ("stablelm-3b", 2), ("whisper-small", None),
+           ("xlstm-1.3b", 8), ("zamba2-7b", 7))
+LM_B, LM_S, LM_FRAMES, LM_STEPS, LM_CARD_CPU_STEPS = 2, 16, 64, 16, 4
+
+
+def lm_bf16_bound(want: torch.Tensor) -> float:
+    """The reference's bf16 decode-vs-forward tolerance."""
+    return max(0.01 * float(want.float().abs().max()), 0.25)
+
+
+def lm_max_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max())
+
+
+def lm_inputs(cfg, gen):
+    """(B, S) token ids and the frontend stub's input (vision: the
+    ``n_frontend_tokens`` patch embeddings; audio: 64 frames), drawn on
+    the card."""
+    tokens = torch.randint(0, cfg.vocab, (LM_B, LM_S), generator=gen,
+                           device="cuda")
+    n = {"vision_stub": cfg.n_frontend_tokens,
+         "audio_stub": LM_FRAMES}.get(cfg.frontend)
+    extra = None if n is None else torch.randn(
+        (LM_B, n, cfg.d_model), generator=gen, device="cuda")
+    return tokens, extra
+
+
+def lm_decode_vs_forward(model, tokens, label, bound=None) -> float:
+    """Teacher-forced decode logits against ``forward`` on ``tokens`` (no
+    frontend): max |diff|, which must be at most ``bound`` where one is
+    given (else it is only printed)."""
+    from repro_torch.models.lm import decode_logits
+    err = lm_max_diff(decode_logits(model, tokens), model.forward(tokens))
+    if bound is not None and not err <= bound:
+        fail(f"path k {label}: decode logits differ from forward by {err} "
+             f"(bound {bound})")
+    return err
+
+
+def lm_card_vs_cpu(model, tokens, extra, label, dvf=False):
+    """Cast ``model`` to float32 (bf16 -> float32 is exact), run forward and
+    ``LM_CARD_CPU_STEPS`` greedy decode steps on the card, move it to the
+    CPU and run them again: logits within 1e-3 x max(1, max|logits|), the
+    same greedy tokens. With ``dvf``, first decode == forward on the card
+    in float32 within 1e-3 x max(1, max|logits|). Returns (the card-CPU
+    |diff| over max(1, max|.|), the float32 decode-forward |diff| over
+    max(1, max|logits|) or None)."""
+    import dataclasses
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models.lm import decode_logits
+    model.float()
+    model.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    encdec = model.cfg.block_pattern == "encdec"
+    f32_dvf = None
+    if dvf:
+        scale = max(1.0, float(model.forward(tokens).abs().max()))
+        f32_dvf = lm_decode_vs_forward(model, tokens, f"{label} float32",
+                                       1e-3 * scale) / scale
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        model.to(dev)
+        tok = tokens.to(dev)
+        ex = None if extra is None else extra.to(dev)
+        cross = model.encode(ex)[1] if encdec else None
+        fwd = model.forward(tok, ex)
+        seq, _ = greedy_decode(model, tok[:, :1], 1 + LM_CARD_CPU_STEPS,
+                               cross=cross)
+        dec = decode_logits(model, torch.from_numpy(seq[:, :-1]).to(dev),
+                            cross=cross)
+        sides[dev] = (fwd.cpu(), seq, dec.cpu())
+    if not np.array_equal(sides["cuda"][1], sides["cpu"][1]):
+        fail(f"path k {label}: greedy tokens differ, card "
+             f"{sides['cuda'][1].tolist()} CPU {sides['cpu'][1].tolist()}")
+    worst = 0.0
+    for i, what in ((0, "forward"), (2, "decode")):
+        want = sides["cpu"][i]
+        scale = max(1.0, float(want.abs().max()))
+        err = lm_max_diff(sides["cuda"][i], want)
+        if not err <= 1e-3 * scale:
+            fail(f"path k {label}: float32 {what} logits on the card differ "
+                 f"from the CPU's by {err} (bound {1e-3 * scale})")
+        worst = max(worst, err / scale)
+    return worst, f32_dvf
+
+
+def lm_row(label, cfg, layers, nbytes, seconds, tps, bf16, f32, cvc,
+           card) -> None:
+    """One line of path k's table. ``bf16``: decode-forward max |diff| and
+    the reference's bf16 tolerance; ``f32``: the float32 decode-forward
+    |diff| over max(1, max|logits|); ``cvc``: card against CPU, the same
+    scale."""
+    b16 = "-" if bf16 is None else f"{bf16[0]:.4f}/{bf16[1]:.4f}"
+    f32 = "-" if f32 is None else f"{f32:.3e}"
+    print(f"{label:4s} {cfg.name:26s} {layers:>6s} {nbytes / 1e9:8.3f} "
+          f"{seconds:7.1f} {tps:8.1f} {b16:>15s} {f32:>10s} {cvc:10.3e}  "
+          f"{card}", flush=True)
+
+
+def phase_lm(card: str) -> None:
+    """Path k: ``launch.serve.serve`` on qwen2-0.5b at full width and depth
+    in bf16 (k1: shape, ids, tok/s, decode == forward at the bf16
+    tolerance), the same weights in float32 on the card against the CPU
+    (k2), then every other block pattern at full width, cut in depth (k3:
+    forward on (2, 16), 16 teacher-forced and 16 greedy decode steps,
+    finite logits; for dense and gemma2 decode == forward in float32, the
+    bf16 gap printed beside the reference's tolerance (ROADMAP C11); card
+    against CPU in float32). No kernel of the table runs here: the launch
+    counts stay 0.
+    """
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import greedy_decode, serve
+    from repro_torch.models import LM
+    from repro_torch.models.lm import decode_logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_path = time.perf_counter()
+    reset_launches()
+    print("path k: the LM serving path on the card, bf16 weights drawn from "
+          "a seeded generator; card vs CPU in float32", flush=True)
+    print("path config                     layers param_GB  wall_s    "
+          "tok_s   bf16_dvf/tol    f32_dvf card_vs_cpu  card", flush=True)
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    seq, tps = serve(cfg, batch=4, prompt_len=1, gen_len=LM_STEPS)
+    if seq.shape != (4, 1 + LM_STEPS) or not (
+            (seq >= 0) & (seq < cfg.vocab)).all():
+        fail(f"path k1: serve gave {seq.shape} ids in "
+             f"[{seq.min()}, {seq.max()}] (want (4, 17) in [0, "
+             f"{cfg.vocab}))")
+    again, tps_warm = serve(cfg, batch=4, prompt_len=1, gen_len=LM_STEPS)
+    if not np.array_equal(again, seq):
+        fail("path k1: a second serve from the same seed decoded other "
+             "tokens")
+    print(f"path k1: serve qwen2-0.5b batch 4, {LM_STEPS} steps: {tps:.1f} "
+          f"tok/s cold (the first call), {tps_warm:.1f} warm; the same "
+          f"tokens", flush=True)
+    model = LM(cfg)                       # serve's weights: seed 0 on cuda
+    head = torch.from_numpy(seq[:, :LM_STEPS]).cuda()
+    bound = lm_bf16_bound(model.forward(head))
+    bf16 = (lm_decode_vs_forward(model, head, "k1 qwen2-0.5b", bound), bound)
+    layers = f"{cfg.n_layers}/{cfg.n_layers}"
+    lm_row("k1", cfg, layers, model.param_bytes(), time.perf_counter() - t0,
+           tps_warm, bf16, None, float("nan"), card)
+    t0 = time.perf_counter()
+    tokens, _ = lm_inputs(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    cvc, f32 = lm_card_vs_cpu(model, tokens, None, "k2 qwen2-0.5b",
+                              dvf=True)
+    lm_row("k2", cfg, layers, model.param_bytes(), time.perf_counter() - t0,
+           float("nan"), None, f32, cvc, card)
+    del model
+    torch.cuda.empty_cache()
+
+    for arch, cut in LM_CUTS:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = full if cut is None else dataclasses.replace(full,
+                                                           n_layers=cut)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        model = LM(cfg, generator=gen)
+        tokens, extra = lm_inputs(cfg, gen)
+        logits = model.forward(tokens, extra)
+        n_out = LM_S + (cfg.n_frontend_tokens
+                        if cfg.frontend == "vision_stub" else 0)
+        if logits.shape != (LM_B, n_out, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"path k3 {arch}: forward logits {tuple(logits.shape)}, "
+                 f"finite {bool(torch.isfinite(logits).all())}")
+        cross = (model.encode(extra)[1] if cfg.block_pattern == "encdec"
+                 else None)
+        dec = decode_logits(model, tokens, cross=cross)
+        if not bool(torch.isfinite(dec).all()):
+            fail(f"path k3 {arch}: decode logits not finite")
+        seq, tps = greedy_decode(model, tokens[:, :1], 1 + LM_STEPS,
+                                 cross=cross)
+        if not ((seq >= 0) & (seq < cfg.vocab)).all():
+            fail(f"path k3 {arch}: greedy ids out of [0, {cfg.vocab})")
+        causal = cfg.block_pattern in ("dense", "gemma2")
+        bf16 = None
+        if causal:
+            bound = lm_bf16_bound(model.forward(tokens))
+            bf16 = (lm_decode_vs_forward(model, tokens, f"k3 {arch}"), bound)
+        nbytes = model.param_bytes()
+        cvc, f32 = lm_card_vs_cpu(model, tokens, extra, f"k3 {arch}",
+                                  dvf=causal)
+        lm_row("k3", cfg, f"{cfg.n_layers}/{full.n_layers}", nbytes,
+               time.perf_counter() - t0, tps, bf16, f32, cvc, card)
+        del model, logits, dec
+        torch.cuda.empty_cache()
+    print("path k: llama4-maverick-400b-a17b not run: one MoE layer holds "
+          "3 x 128 x 5,120 x 8,192 = 16.1 B expert weights (32 GB bf16); "
+          "it waits for sharded serving", flush=True)
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"path k launched a kernel of the table: {launches}")
+    print(f"phase 4k ok: qwen2-0.5b served at full width and depth, "
+          f"{len(LM_CUTS)} more architectures at full width; "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
 
 
 def lint_on_card() -> None:
@@ -2603,7 +2860,8 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
           flush=True)
@@ -2639,6 +2897,7 @@ def main() -> None:
     i_launches = phase_chaos_soak()
     path_j = phase_mesh_path(db, path_a, path_b, flush, peaks)
     ex_launches = phase_example()
+    phase_lm(card)
     j_launches = {k: v + ex_launches[k]
                   for k, v in path_j["launches"].items()}
     phase_cost_model(db, path_a["results"], eager)

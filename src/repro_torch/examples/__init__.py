@@ -1,3 +1,4 @@
 """Runnable examples of the port, the counterparts of the repository's
-``examples/quickstart.py`` and ``examples/tpch_analytics.py``:
+``examples/quickstart.py``, ``examples/tpch_analytics.py`` and
+``examples/analytics_guided_serving.py``:
 ``python -m repro_torch.examples.<name> [--device cuda|cpu]``."""

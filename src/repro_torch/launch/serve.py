@@ -1,19 +1,28 @@
-"""Serving driver: a PIMDB query-trace replay through ``QueryService``.
+"""Serving drivers: the LM greedy decode loop, and a PIMDB query-trace
+replay through ``QueryService``.
 
-The counterpart of the ``--mode db`` half of ``repro.launch.serve``
-(its ``--mode lm`` decode loop belongs to the language-model scaffolding,
-which the port does not hold). Replays a query trace (comma-separated
-TPC-H names, with ``xN`` repeats, e.g. ``Q1,Q6x3,Q3``) through the async
+The counterpart of ``repro.launch.serve``.
+
+``--mode lm`` (the default): builds ``--arch``'s model (``--smoke`` for
+its reduced config) with seeded random weights, greedy-decodes a batch
+of one-token prompts, and reports tokens/s::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --smoke \
+        --device cpu
+
+``--mode db``: replays a query trace (comma-separated TPC-H names, with
+``xN`` repeats, e.g. ``Q1,Q6x3,Q3``) through the async
 ``repro_torch.serve.QueryService`` at fixed concurrency, and reports qps,
 p50/p99 latency, dispatch/plane-read totals and cache behaviour.
 ``--compare`` also runs the same trace as a sequential ``db.execute``
 loop, for the speedup and an explicit bit-parity check (exit 1 on a
 mismatch)::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode db \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode db \
         --sf 0.002 --device cpu --compare
 
-``--device cuda`` (the default) keeps the relations on the card.
+``--device cuda`` (the default) keeps the model or the relations on the
+card, and fails where there is none.
 """
 from __future__ import annotations
 
@@ -23,6 +32,56 @@ import os
 import sys
 import time
 
+import torch
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def greedy_decode(model, tokens, max_len: int, *, cross=None):
+    """Greedy-decode from first tokens (B, 1) to ``max_len`` positions
+    through ``model.decode_step`` (``cross``: an encdec model's stacked
+    cross K/V from ``encode``). Returns (seq (B, max_len) numpy ids,
+    tokens/s over the ``max_len - 1`` steps)."""
+    B = tokens.shape[0]
+    cache = model.init_cache(B, max_len)
+    if cross is not None:
+        cache["cross"] = cross
+    out = [tokens]
+    _sync(model.device)
+    t0 = time.perf_counter()
+    for pos in range(max_len - 1):
+        logits, cache = model.decode_step(cache, tokens, pos)
+        tokens = logits[:, -1:].argmax(-1)
+        out.append(tokens)
+    seq = torch.cat(out, dim=1).cpu().numpy()
+    dt = time.perf_counter() - t0
+    return seq, B * (max_len - 1) / dt
+
+
+def serve(cfg, batch: int, prompt_len: int, gen_len: int, *, device="cuda",
+          generator=None):
+    """Build ``cfg``'s model with weights drawn from ``generator`` (default:
+    seeded with 0 on ``device``), draw ``batch`` one-token prompts from it
+    (and for encdec 64 stub frames, encoded into the cross cache), and
+    greedy-decode ``prompt_len + gen_len`` positions. Returns (seq,
+    tokens/s) like the reference's ``serve``."""
+    from repro_torch.models.lm import LM, default_generator
+    gen = generator if generator is not None else default_generator(device)
+    model = LM(cfg, device=device, generator=gen)
+    cross = None
+    if cfg.block_pattern == "encdec":
+        frames = torch.randn((batch, 64, cfg.d_model), generator=gen,
+                             device=gen.device).to(torch.bfloat16)
+        _, cross = model.encode(frames.to(device))
+    tokens = torch.randint(0, cfg.vocab, (batch, 1), generator=gen,
+                           device=gen.device).to(device)
+    return greedy_decode(model, tokens, prompt_len + gen_len, cross=cross)
+
+
+# -- PIMDB query-trace replay ------------------------------------------------
 DEFAULT_TRACE = "Q1,Q6,Q14,Q3,Q12,Q6,Q14,Q1,Q6,Q19,Q3,Q6,Q14,Q12,Q1,Q6"
 
 
@@ -131,24 +190,40 @@ def serve_db_main(args) -> None:
         watchdog.cancel()
 
 
+def serve_lm_main(args) -> None:
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    seq, tps = serve(cfg, args.batch, 1, args.gen_len, device=args.device)
+    print(f"decoded {seq.shape} at {tps:.1f} tok/s ({cfg.name} on "
+          f"{args.device})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mode", choices=("db",), default="db",
-                    help="db: the query-trace replay (the only mode here)")
+    ap.add_argument("--mode", choices=("lm", "db"), default="lm")
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--sf", type=float, default=0.005)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="where the relations live (default cuda; cpu "
-                         "runs the kernels' plain versions)")
+                    help="where the model (lm) or the relations (db) live "
+                         "(default cuda; cpu runs the kernels' plain "
+                         "versions)")
     ap.add_argument("--trace", default=DEFAULT_TRACE)
     ap.add_argument("--concurrency", type=int, default=8)
     ap.add_argument("--window", type=int, default=8)
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--compare", action="store_true")
     ap.add_argument("--timeout-s", type=float, default=600.0,
-                    help="hard wall-clock limit for the replay (exit 124 "
-                         "on expiry; 0 disables)")
-    serve_db_main(ap.parse_args(argv))
+                    help="hard wall-clock limit for the --mode db replay "
+                         "(exit 124 on expiry; 0 disables)")
+    args = ap.parse_args(argv)
+    if args.mode == "db":
+        serve_db_main(args)
+    else:
+        serve_lm_main(args)
 
 
 if __name__ == "__main__":
