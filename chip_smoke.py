@@ -91,8 +91,10 @@ Phases (any failure exits non-zero before the last line):
       at most half a first-fit replay's; then an ``Update`` of l_quantity
       under Q6's predicate, an ``Insert`` of 32,768 rows (past the spare
       slots: the planes grow one tile), Q6 and Q14 on FUSED and Q6 on
-      EAGER against ORACLE, kernels == plain at those shapes, ``Compact``
-      and Q6 once more. ``db.apply`` launches nothing and keeps every
+      EAGER against ORACLE, kernels == plain at those shapes; then, on a
+      fresh sf 0.05 database (Compact at SF 1 took 41-57 s, host work),
+      two rounds of insert 64 + delete, ``Compact`` and Q6 against the
+      mutable table. ``db.apply`` launches nothing and keeps every
       plane on the card; ``fused_program`` launches once per relation
       program, ``materialize`` once per ``Materialize``, the eager Q6 only
       ``eq_imm``/``cmp_imm``. It prints each ``db.apply``'s wall ms, bytes
@@ -180,6 +182,27 @@ Phases (any failure exits non-zero before the last line):
       CPU check in float32. llama4-maverick is left out with its reason
       printed (one MoE layer alone is 32 GB in bf16). No kernel of the
       table runs on path k.
+   l. The LM training path (``launch.train``, ``launch.steps``, ``optim``,
+      ``checkpoint``, ``data.pipeline``). l1: ``PimDataSelector`` over
+      ``CorpusMeta.synthetic(10_000_000, seed=0)`` on the card (47 planes
+      x 312,500 words), its admission equal to ``queries.eval_pred`` bit
+      for bit, its times and launches; ``train()`` on qwen2-0.5b at full
+      width and depth (bf16, remat, AdamW, seeded random weights) at
+      batch 4 x 512 for 8 steps, loss and grad norm finite every step,
+      ms a step, tok/s and ``max_memory_allocated``; a 4-step run saved
+      blocking and restored, every leaf of the parameters and the AdamW
+      state bit for bit (seconds, bytes on disk); a run resumed from it
+      to step 8 within rtol 2e-4 of the uninterrupted losses. l2: the
+      example's lm-12m in float32 at batch 8 x 256, 3 ``train()`` steps
+      on the card (an async checkpoint every step, the last restored bit
+      for bit) and on the CPU from one seed's weights: losses and grad
+      norms within 1e-4 relative, parameters within 1e-4 x max(1,
+      max|p|); then one AdamW step of olmoe, gemma2, xlstm, zamba2,
+      whisper and paligemma at full width with path k's depth cuts, and
+      one Adafactor step at llama4-maverick's smoke size, loss, grad norm
+      and parameters finite, each step's time. Only ``eq_imm`` and
+      ``cmp_imm`` launch (the admissions), then they are held against
+      their plain versions at l1's shapes.
    Then every kernel against its plain version bit for bit at those SF 1
    shapes, and the times: first the timing floor (an empty kernel timed
    the same way, after a 64 MB write flush, a read flush and none); per
@@ -199,8 +222,8 @@ Phases (any failure exits non-zero before the last line):
    found equal): the paper's analytical model, not a measurement of the
    card.
 6. One ``{"kernels": [...]}`` JSON line (eight kernels; ``fused_program``
-   over the programs of paths a, b, f and g; launches of paths a-j and the
-   examples), then
+   over the programs of paths a, b, f and g; launches of paths a-j, the
+   examples and l), then
    ``{"ok": true, ...}`` last.
 
 Seeds fix the data; nothing is read from outside the checkout.
@@ -1621,6 +1644,7 @@ def phase_linked_batches(db, path_a, path_b, flush):
 
 
 HTAP_ROUNDS, HTAP_BATCH, HTAP_GROW = 6, 64, 32_768
+COMPACT_SF = 0.05
 
 
 def verify_compile_timing(db) -> None:
@@ -1745,6 +1769,7 @@ def phase_htap_stream(tables, flush, peaks):
     from repro_torch.db import database as D
     from repro_torch.db import exec as E
     from repro_torch.db import queries as Q
+    from repro_torch.db import tpch
     from repro_torch.db.compiler import Compiler
     from repro_torch.dml import (Compact, Delete, Insert, MutableTable,
                                  Update, replay)
@@ -1873,21 +1898,42 @@ def phase_htap_stream(tables, flush, peaks):
         eager_programs(db, [q6], []))
     record["max_abs_err"] = max(p["diff"] for p in record["progs"])
 
-    htap_apply(db, "compact", [Compact("lineitem")], rows)
-    r6c, l6c = htap_fused(db, q6, "after compact")
+    # Compact runs on its own sf 0.05 database: at SF 1 it alone took
+    # 41-57 s of this script's 1,200 s budget on an H100 (host work).
+    small = D.PimDatabase(tpch.generate(sf=COMPACT_SF, seed=SEED))
+    s_oracle = MutableTable(small.tables["lineitem"])
+    s_src = {a: np.asarray(c) for a, c in small.tables["lineitem"].items()}
+    s_prev = []
+    for r in range(2):
+        idx = rng.integers(0, len(s_src["l_quantity"]), HTAP_BATCH)
+        batch = {a: c[idx] for a, c in s_src.items()}
+        muts = [Insert("lineitem", batch)]
+        if s_prev:
+            muts.append(Delete("lineitem", row_ids=s_prev))
+        htap_apply(small, f"sf {COMPACT_SF} round {r + 1}", muts, rows)
+        new_ids = s_oracle.insert(batch)
+        if s_prev:
+            s_oracle.delete(row_ids=s_prev)
+        s_prev = new_ids
+    htap_apply(small, f"sf {COMPACT_SF} compact", [Compact("lineitem")],
+               rows)
+    r6c, l6c = htap_fused(small, q6, "after compact")
     count(l6c)
-    exp = oracle.aggregate(spec6.filters["lineitem"], spec6.aggregates)
+    exp = s_oracle.aggregate(spec6.filters["lineitem"], spec6.aggregates)
     if tuple(r6c.aggregates["all"][a.name]
              for a in spec6.aggregates) != exp:
         fail(f"path g after compact: Q6 != MutableTable {exp}")
     record["launches"] = launches["fused_program"]
 
-    rep = db.report(r6c)
+    rep = db.report(r6)
     print(f"path g wear: rotate's busiest row {leveled:.0f} cell writes "
           f"after the stream, first-fit replay {unleveled:.0f} (ratio "
-          f"{leveled / unleveled:.4f} <= 0.5); after the update, growth "
-          f"and compact {d.segments.busiest_row_ops():.0f}", flush=True)
-    print(f"path g report (Q6 after compact, sf_scale 1): bytes_resident "
+          f"{leveled / unleveled:.4f} <= 0.5); after the update and growth "
+          f"{d.segments.busiest_row_ops():.0f}; the sf {COMPACT_SF} "
+          f"database after its compact "
+          f"{small.dml_state('lineitem').segments.busiest_row_ops():.0f}",
+          flush=True)
+    print(f"path g report (Q6 after the growth, sf_scale 1): bytes_resident "
           f"{rep.bytes_resident}, bytes_reserved {rep.bytes_reserved}, "
           f"dml_row_ops {rep.dml_row_ops:.0f}, endurance "
           f"{rep.endurance_ops_per_cell_10y:.6g} ops/cell for 10 years; "
@@ -1899,7 +1945,8 @@ def phase_htap_stream(tables, flush, peaks):
           f"every round, no tape-cache miss after round 1 (Q6 after the "
           f"growth: {grow_misses}); update, growth past {spare} spare "
           f"slots, Q6/"
-          f"Q14 FUSED and Q6 EAGER == ORACLE, compact, Q6 == MutableTable; "
+          f"Q14 FUSED and Q6 EAGER == ORACLE; compact at sf {COMPACT_SF}, "
+          f"Q6 == MutableTable; "
           f"launches {launches}; fused_program == plain on "
           f"{len(record['progs'])} programs, materialize on 2, eq/cmp/"
           f"range on {n_ops} operands; {len(rows)} db.apply calls moved "
@@ -2710,6 +2757,7 @@ def lm_row(label, cfg, layers, nbytes, seconds, tps, bf16, f32, cvc,
           f"{card}", flush=True)
 
 
+@torch.inference_mode()
 def phase_lm(card: str) -> None:
     """Path k: ``launch.serve.serve`` on qwen2-0.5b at full width and depth
     in bf16 (k1: shape, ids, tok/s, decode == forward at the bf16
@@ -2813,6 +2861,306 @@ def phase_lm(card: str) -> None:
           f"{time.perf_counter() - t_path:.1f} s", flush=True)
 
 
+# -- path l: the LM training path ---------------------------------------------
+# l1: qwen2-0.5b at full width and depth, batch 4 x 512 tokens; the
+# admission at 10 M records (47 planes x 312,500 words). l2: the example's
+# lm-12m at its default batch (8 x 256) card against CPU, then one step of
+# every other block pattern at k3's cuts (LM_CUTS) and llama4's smoke size.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_RESUME_AT = 4, 512, 8, 4
+ADMIT_N = 10_000_000
+L2_STEPS = 3
+L2_ARCHS = ("olmoe-1b-7b", "gemma2-9b", "xlstm-1.3b", "zamba2-7b",
+            "whisper-small", "paligemma-3b")
+
+
+def train_finite(label, history) -> None:
+    for h in history:
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            fail(f"path {label}: step {h['step']} loss {h['loss']} grad "
+                 f"norm {h['grad_norm']}")
+
+
+def same_tree(label, got, want) -> None:
+    """Every leaf of two checkpoint trees equal bit for bit."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    g, w = ckpt._flatten(got), ckpt._flatten(want)
+    if list(g) != list(w):
+        fail(f"path {label}: restored leaves {list(g)[:4]} != saved "
+             f"{list(w)[:4]}")
+    for k, v in w.items():
+        if (v is None) != (g[k] is None) or (
+                v is not None and (g[k].dtype != v.dtype
+                                   or not torch.equal(g[k], v))):
+            fail(f"path {label}: restored leaf {k} differs from the saved one")
+
+
+def phase_admission(card):
+    """l1's admission: ``PimDataSelector`` over ``CorpusMeta.synthetic(
+    10_000_000, seed=0)`` on the card, equal to ``queries.eval_pred`` bit
+    for bit; its build and admit times and launches. Returns the
+    selector (its planes are checked against plain after the path)."""
+    from repro_torch.data.pipeline import (CorpusMeta, PimDataSelector,
+                                           default_selection)
+    from repro_torch.db import queries
+    meta = CorpusMeta.synthetic(ADMIT_N, seed=0)
+    t0 = time.perf_counter()
+    sel = PimDataSelector(meta)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(3):
+        before = read_launches()
+        t0 = time.perf_counter()
+        mask = sel.admit()
+        times.append((time.perf_counter() - t0) * 1e3)
+    after = read_launches()
+    launches = {k: after[k] - before[k] for k in after}
+    cols = {"length": meta.length, "quality": meta.quality,
+            "domain": meta.domain, "dedup_bucket": meta.dedup_bucket}
+    want = queries.eval_pred(cols, default_selection())
+    if not np.array_equal(mask, want):
+        fail(f"path l1: admission differs from numpy on "
+             f"{int((mask != want).sum())} of {ADMIT_N} records")
+    planes = sum(p.shape[0] for p in sel.rel.planes.values())
+    words = sel.rel.valid.shape[0]
+    nbytes = sum(p.numel() * 4 for p in sel.rel.planes.values())
+    print(f"path l1 admission: {ADMIT_N:,} records, {planes} planes x "
+          f"{words:,} words ({nbytes / 1e6:.1f} MB on the card), "
+          f"{int(mask.sum()):,} admitted == numpy; bit-slice and upload "
+          f"{build_ms:.1f} ms, admit {times[0]:.1f} ms cold, "
+          f"{times[1]:.1f} / {times[2]:.1f} ms warm (to the host mask); "
+          f"eq_imm {launches['eq_imm']} + cmp_imm {launches['cmp_imm']} "
+          f"launches an admit; {card}", flush=True)
+    return sel
+
+
+def phase_train_qwen2(card) -> None:
+    """l1's training: ``train()`` on qwen2-0.5b at full width and depth
+    (bf16, remat, AdamW), 8 steps uninterrupted; 4 steps, a blocking save
+    and a restore bit for bit; a run resumed from it to step 8 within rtol
+    2e-4 of the uninterrupted losses."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import ShapeConfig
+    from repro_torch.launch.train import train
+    from repro_torch.models import convert
+    cfg = get_config("qwen2-0.5b")
+    shape = ShapeConfig("l1", TRAIN_S, TRAIN_B, "train")
+    kw = dict(log_every=0)
+    torch.cuda.reset_peak_memory_stats()
+    full = []
+    t0 = time.perf_counter()
+    model, state, losses_full = train(cfg, shape, steps=TRAIN_STEPS,
+                                      history=full, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train_finite("l1", full)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, state
+    torch.cuda.empty_cache()
+    warm = statistics.median(h["seconds"] for h in full[1:])
+    print(f"path l1: train qwen2-0.5b ({n_params / 1e6:.1f} M parameters, "
+          f"bf16, remat, AdamW) batch {TRAIN_B} x {TRAIN_S}, "
+          f"{TRAIN_STEPS} steps in {wall:.1f} s: step 1 "
+          f"{full[0]['seconds'] * 1e3:.1f} ms, warm median "
+          f"{warm * 1e3:.1f} ms ({TRAIN_B * TRAIN_S / warm:.0f} tok/s); "
+          f"max_memory_allocated {peak / 1e9:.2f} GB; losses "
+          f"{[round(x, 4) for x in losses_full]}, grad norms "
+          f"{[round(h['grad_norm'], 3) for h in full]}; {card}", flush=True)
+
+    root = Path(__file__).resolve().parent
+    ckdir = tempfile.mkdtemp(prefix=".smoke_ckpt_", dir=root)
+    try:
+        model, state, losses_a = train(cfg, shape, steps=TRAIN_RESUME_AT,
+                                       **kw)
+        tree = {"params": convert.reference_params(model), "opt": state}
+        t0 = time.perf_counter()
+        ckpt.save(ckdir, TRAIN_RESUME_AT, tree, blocking=True)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*")
+                     if f.is_file())
+        t0 = time.perf_counter()
+        step, back = ckpt.restore(ckdir, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != TRAIN_RESUME_AT:
+            fail(f"path l1: restored step {step}")
+        same_tree("l1", back, tree)
+        n_leaves = sum(v is not None for v in ckpt._flatten(tree).values())
+        del model, state, tree, back
+        torch.cuda.empty_cache()
+        resumed = []
+        _, _, losses_b = train(cfg, shape, steps=TRAIN_STEPS,
+                               ckpt_dir=ckdir, ckpt_every=TRAIN_STEPS * 2,
+                               history=resumed, **kw)
+        train_finite("l1 resumed", resumed)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    tail = np.asarray(losses_full[TRAIN_RESUME_AT:])
+    rel = float(np.max(np.abs(np.asarray(losses_b) - tail) / np.abs(tail)))
+    if len(losses_b) != TRAIN_STEPS - TRAIN_RESUME_AT or not rel <= 2e-4:
+        fail(f"path l1: resumed losses {losses_b} against uninterrupted "
+             f"{tail.tolist()} (max rel {rel}, rtol 2e-4)")
+    rel_a = float(np.max(np.abs(np.asarray(losses_a)
+                                - losses_full[:TRAIN_RESUME_AT])
+                         / np.abs(losses_full[:TRAIN_RESUME_AT])))
+    print(f"path l1 checkpoint: step {TRAIN_RESUME_AT}, {n_leaves} leaves "
+          f"(params and AdamW state), {nbytes:,} bytes on disk; blocking "
+          f"save {save_s:.2f} s, restore to the card {restore_s:.2f} s, "
+          f"every leaf equal bit for bit; resumed steps "
+          f"{TRAIN_RESUME_AT + 1}-{TRAIN_STEPS} within {rel:.2e} of the "
+          f"uninterrupted losses (rtol 2e-4; the 4-step run's own losses "
+          f"within {rel_a:.2e}); {card}", flush=True)
+
+
+def phase_train_patterns(card) -> None:
+    """l2: the example's lm-12m (float32, batch 8 x 256) for 3 ``train()``
+    steps on the card and on the CPU from one seed's weights (async
+    checkpoints every step on the card, the last restored bit for bit);
+    then one train step of each other block pattern at full width, cut in
+    depth as in path k, and one Adafactor step at llama4-maverick's smoke
+    size."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.common import ShapeConfig
+    from repro_torch.examples.train_lm import SMALL
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import train
+    from repro_torch.models import LM, convert
+    from repro_torch.optim import optimizers as opt
+    cfg = dataclasses.replace(SMALL, dtype="float32")
+    shape = ShapeConfig("l2", 256, 8, "train")
+    root = Path(__file__).resolve().parent
+    ckdir = tempfile.mkdtemp(prefix=".smoke_ckpt_", dir=root)
+    sides = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            hist = []
+            t0 = time.perf_counter()
+            model, state, _ = train(
+                cfg, shape, steps=L2_STEPS, log_every=0, device=dev,
+                generator=torch.Generator().manual_seed(SEED),
+                ckpt_dir=ckdir if dev == "cuda" else None, ckpt_every=1,
+                history=hist)
+            train_finite(f"l2 lm-12m {dev}", hist)
+            sides[dev] = (hist, {n: p.detach().cpu() for n, p in
+                                 model.named_parameters()},
+                          time.perf_counter() - t0)
+            if dev == "cuda":
+                tree = {"params": convert.reference_params(model),
+                        "opt": state}
+                step, back = ckpt.restore(ckdir, tree)
+                if step != L2_STEPS:
+                    fail(f"path l2: newest checkpoint is step {step}")
+                same_tree("l2 lm-12m", back, tree)
+            del model, state
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    worst = 0.0
+    for a, b in zip(*(sides[d][0] for d in ("cuda", "cpu"))):
+        for k in ("loss", "grad_norm"):
+            rel = abs(a[k] - b[k]) / abs(b[k])
+            if not rel <= 1e-4:
+                fail(f"path l2 lm-12m step {b['step']}: {k} card {a[k]} "
+                     f"CPU {b[k]} (rtol 1e-4)")
+            worst = max(worst, rel)
+    pworst = 0.0
+    for name, want in sides["cpu"][1].items():
+        scale = max(1.0, float(want.abs().max()))
+        err = float((sides["cuda"][1][name] - want).abs().max())
+        if not err <= 1e-4 * scale:
+            fail(f"path l2 lm-12m: parameter {name} card against CPU "
+                 f"{err} (bound {1e-4 * scale})")
+        pworst = max(pworst, err / scale)
+    cards = [h["seconds"] * 1e3 for h in sides["cuda"][0]]
+    cpus = [h["seconds"] * 1e3 for h in sides["cpu"][0]]
+    print(f"path l2: lm-12m float32 batch 8 x 256, {L2_STEPS} train() "
+          f"steps, card ms {[round(x, 1) for x in cards]} against CPU ms "
+          f"{[round(x, 1) for x in cpus]}: losses and grad norms within "
+          f"{worst:.2e} relative (1e-4), parameters within {pworst:.2e} x "
+          f"max(1, max|p|) (1e-4); async checkpoint every step, step "
+          f"{L2_STEPS} restored bit for bit; {card}", flush=True)
+
+    print("path l2 pattern                    optimizer layers param_GB "
+          "step_ms     loss  grad_norm  card", flush=True)
+    cuts = dict(LM_CUTS)
+    runs = [(a, get_config(a), cuts[a]) for a in L2_ARCHS]
+    llama = "llama4-maverick-400b-a17b"
+    runs.append((llama, dataclasses.replace(
+        get_smoke_config(llama), optimizer=get_config(llama).optimizer),
+        None))
+    shape = ShapeConfig("l2", LM_S, LM_B, "train")
+    for arch, full, cut in runs:
+        cfg = full if cut is None else dataclasses.replace(full,
+                                                           n_layers=cut)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        model = LM(cfg, generator=gen)
+        tokens, extra = lm_inputs(cfg, gen)
+        labels = torch.randint(0, cfg.vocab, tokens.shape, generator=gen,
+                               device="cuda")
+        step = steps_mod.build_train_step(cfg, shape, model)
+        state = opt.make_optimizer(cfg.optimizer)[0](
+            convert.reference_params(model))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": tokens, "labels": labels,
+                                "extra": extra})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in model.parameters())
+        if not (np.isfinite(loss) and np.isfinite(gn) and finite
+                and int(state.step) == 1):
+            fail(f"path l2 {arch}: loss {loss}, grad norm {gn}, parameters "
+                 f"finite {finite}")
+        print(f"l2   {arch:29s} {cfg.optimizer:9s} {cfg.n_layers:>3d}/"
+              f"{full.n_layers:<3d} {model.param_bytes() / 1e9:7.3f} "
+              f"{ms:8.1f} {loss:8.4f} {gn:10.4f}  {card}", flush=True)
+        del model, state, m
+        torch.cuda.empty_cache()
+
+
+def phase_train(card) -> dict:
+    """Path l: the LM training path (``launch.train``, ``launch.steps``,
+    ``optim``, ``checkpoint``, ``data.pipeline``) on the card. Only
+    ``eq_imm`` and ``cmp_imm`` of the table run here (the admissions);
+    they are then held against their plain versions at l1's 10 M-record
+    shapes. Returns the path's launches and the kernels' max diff."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_path = time.perf_counter()
+    reset_launches()
+    sel = phase_admission(card)
+    phase_train_qwen2(card)
+    phase_train_patterns(card)
+    launches = read_launches()
+    others = {k: v for k, v in launches.items()
+              if k not in ("eq_imm", "cmp_imm") and v}
+    if others or not launches["eq_imm"] or not launches["cmp_imm"]:
+        fail(f"path l launched {launches}: want eq_imm and cmp_imm only")
+    planes = sel.rel.planes
+    worst = max(check_filter_kernels("path l1 domain", planes["domain"],
+                                     (0, 1, 2, 3, 5, 8, 13)),
+                check_filter_kernels("path l1 length", planes["length"],
+                                     (128,)),
+                check_filter_kernels("path l1 quality", planes["quality"],
+                                     (60,)))
+    del sel
+    torch.cuda.empty_cache()
+    print(f"phase 4l ok: admission at {ADMIT_N:,} records, qwen2-0.5b "
+          f"trained at full width and depth, checkpointed and resumed, "
+          f"{len(L2_ARCHS) + 2} more configs' train steps; eq_imm/cmp_imm "
+          f"== plain at l1's shapes; launches {launches}; "
+          f"{time.perf_counter() - t_path:.1f} s", flush=True)
+    return {"launches": launches, "worst": worst}
+
+
 def lint_on_card() -> None:
     """``repro_torch.analysis.lint`` with its database and DML writes on
     the card, at SF 0.002: it prints its totals; 0 errors or the run
@@ -2898,6 +3246,7 @@ def main() -> None:
     path_j = phase_mesh_path(db, path_a, path_b, flush, peaks)
     ex_launches = phase_example()
     phase_lm(card)
+    path_l = phase_train(card)
     j_launches = {k: v + ex_launches[k]
                   for k, v in path_j["launches"].items()}
     phase_cost_model(db, path_a["results"], eager)
@@ -2918,12 +3267,14 @@ def main() -> None:
     for a in api:
         a["launches"] += (eager_launches[a["name"]] + g_launches[a["name"]]
                           + h_launches[a["name"]] + i_launches[a["name"]]
-                          + j_launches[a["name"]])
+                          + j_launches[a["name"]]
+                          + path_l["launches"][a["name"]])
         a["max_abs_err"] = max(
             a["max_abs_err"], filt_worst["filter_sum"]
             if a["name"] == "filter_sum" else max(filt_worst["filter"],
                                                   eager_worst,
-                                                  g_eager_worst))
+                                                  g_eager_worst,
+                                                  path_l["worst"]))
     print(json.dumps({"kernels": [fused, mat, *cols, *api]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

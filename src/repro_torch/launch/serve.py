@@ -40,6 +40,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.inference_mode()
 def greedy_decode(model, tokens, max_len: int, *, cross=None):
     """Greedy-decode from first tokens (B, 1) to ``max_len`` positions
     through ``model.decode_step`` (``cross``: an encdec model's stacked
@@ -61,6 +62,7 @@ def greedy_decode(model, tokens, max_len: int, *, cross=None):
     return seq, B * (max_len - 1) / dt
 
 
+@torch.inference_mode()
 def serve(cfg, batch: int, prompt_len: int, gen_len: int, *, device="cuda",
           generator=None):
     """Build ``cfg``'s model with weights drawn from ``generator`` (default:

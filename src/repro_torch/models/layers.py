@@ -5,7 +5,9 @@ The counterpart of ``repro.models.layers``. Parameters live in
 ``models.convert.load_reference_params`` can place a reference leaf by its
 path. Each function mirrors the reference's dtype choices: where a step
 runs in float32 and where it stays in the input dtype (bf16 models keep
-their hidden stream in bf16).
+their hidden stream in bf16). Parameters are made with
+``requires_grad=False`` (serving builds no graph); training turns them on
+with ``model.requires_grad_(True)``.
 """
 from __future__ import annotations
 
@@ -216,9 +218,10 @@ def unembed(x, table):
 
 
 def cross_entropy(logits, labels, z_loss: float = 1e-4):
-    """Mean cross entropy over tokens in float32, plus ``z_loss * lse^2``."""
+    """Mean cross entropy over tokens in float32, plus ``z_loss * lse^2``.
+    The row max carries no gradient (the reference's ``stop_gradient``)."""
     lf = logits.float()
-    m = lf.max(-1, keepdim=True).values
+    m = lf.max(-1, keepdim=True).values.detach()
     shifted = lf - m
     lse = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
     ll = shifted.gather(-1, labels[..., None].long())[..., 0] + m[..., 0]

@@ -16,7 +16,14 @@ layer index after the stack's name (``blocks.3.attn.wq``). The caches keep
 the reference's stacked layouts — (L, B, T, nkv, hd) K/V, and the
 ``MLSTMState``/``SLSTMState``/``SSMState`` stacks — so they compare leaf by
 leaf; ``decode_step`` writes them in place and returns ``(logits,
-cache)``. Everything runs under ``torch.inference_mode()``.
+cache)``. ``init_cache`` and ``decode_step`` run under
+``torch.inference_mode()``; ``forward``, ``loss`` and ``encode`` carry a
+graph wherever a parameter requires a gradient (``model.requires_grad_()``:
+parameters are made without one, so serving builds none). With
+``cfg.remat`` each of the reference's scanned bodies (a block, gemma2's
+local/global pair, an xLSTM or Zamba unit, an encoder or decoder block)
+recomputes its activations in the backward pass, as the reference's
+``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.common import ModelConfig
 from . import attention as A
@@ -172,7 +180,7 @@ class LM(nn.Module):
                                seq_groups=self.cfg.moe_seq_groups)
         return blk.mlp(h)
 
-    def _attn_block(self, blk: Block, x, positions, window):
+    def _attn_block(self, x, blk: Block, positions, window):
         cfg = self.cfg
         q, k, v = A._project_qkv(blk.attn, blk.norm1(x), positions, cfg)
         o = flash_attention(q, k, v, causal=True, window=window,
@@ -185,8 +193,14 @@ class LM(nn.Module):
             x = x + apply(c.cell, c.norm(x))
         return x
 
+    def _remat(self, body, x, *args):
+        """``body(x, *args)``; with ``cfg.remat``, while a graph is being
+        built, its activations are recomputed in the backward pass."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(body, x, *args, use_reentrant=False)
+        return body(x, *args)
+
     # ----- forward (train / prefill) ---------------------------------------
-    @torch.inference_mode()
     def forward(self, tokens, extra=None):
         """tokens (B, S) -> logits (B, S [+ frontend tokens], vocab)."""
         cfg = self.cfg
@@ -199,33 +213,63 @@ class LM(nn.Module):
                                  device=x.device).expand(B, S)
         if bp in ("dense", "moe"):
             for blk in self.blocks:
-                x = self._attn_block(blk, x, positions, cfg.sliding_window)
+                x = self._remat(self._attn_block, x, blk, positions,
+                                cfg.sliding_window)
         elif bp == "gemma2":
             for bl, bg in zip(self.blocks_local, self.blocks_global):
-                x = self._attn_block(bl, x, positions, cfg.sliding_window)
-                x = self._attn_block(bg, x, positions, None)
+                x = self._remat(self._gemma2_pair, x, bl, bg, positions)
         elif bp == "xlstm":
-            def mlstm(p, h):
-                return X.mlstm_apply(p, h, cfg.n_heads)
-
-            def slstm(p, h):
-                return X.slstm_apply(p, h, cfg.n_heads)
-            for u, sl in enumerate(self.slstm):
-                x = self._cell_stack(self.mlstm[u * 7:(u + 1) * 7], x, mlstm)
-                x = self._cell_stack([sl], x, slstm)
+            for u in range(len(self.slstm)):
+                x = self._remat(self._xlstm_unit, x, u)
         elif bp == "zamba":
-            def mamba(p, h):
-                return SSM.ssm_apply(p, h, cfg.ssm)
-            ae = cfg.attn_every
-            for u in range(len(self.mamba) // ae):
-                x = self._cell_stack(self.mamba[u * ae:(u + 1) * ae], x,
-                                     mamba)
-                x = self._attn_block(self.shared_attn, x, positions, None)
+            for u in range(len(self.mamba) // cfg.attn_every):
+                x = self._remat(self._zamba_unit, x, u, positions)
             if self.tail is not None:
-                x = self._cell_stack(self.tail, x, mamba)
+                x = self._cell_stack(self.tail, x, self._mamba)
         else:
             raise ValueError(bp)
         return self._logits(x)
+
+    # The reference's scanned bodies (x first: ``_remat``'s order).
+    def _gemma2_pair(self, x, bl: Block, bg: Block, positions):
+        x = self._attn_block(x, bl, positions, self.cfg.sliding_window)
+        return self._attn_block(x, bg, positions, None)
+
+    def _xlstm_unit(self, x, u: int):
+        n_heads = self.cfg.n_heads
+        x = self._cell_stack(self.mlstm[u * 7:(u + 1) * 7], x,
+                             lambda p, h: X.mlstm_apply(p, h, n_heads))
+        return self._cell_stack([self.slstm[u]], x,
+                                lambda p, h: X.slstm_apply(p, h, n_heads))
+
+    def _mamba(self, p, h):
+        return SSM.ssm_apply(p, h, self.cfg.ssm)
+
+    def _zamba_unit(self, x, u: int, positions):
+        ae = self.cfg.attn_every
+        x = self._cell_stack(self.mamba[u * ae:(u + 1) * ae], x, self._mamba)
+        return self._attn_block(x, self.shared_attn, positions, None)
+
+    def _enc_block(self, enc, blk: Block):
+        h = blk.norm1(enc)
+        a = blk.attn
+        o = flash_attention(A.proj(h, a.wq), A.proj(h, a.wk),
+                            A.proj(h, a.wv), causal=False)
+        enc = enc + A.out_proj(o, a.wo)
+        return enc + blk.mlp(blk.norm2(enc))
+
+    def _dec_block(self, x, blk: Block, enc):
+        h = blk.norm1(x)
+        a = blk.attn
+        o = flash_attention(A.proj(h, a.wq), A.proj(h, a.wk),
+                            A.proj(h, a.wv), causal=True)
+        x = x + A.out_proj(o, a.wo)
+        hx = blk.norm_x(x)
+        xa = blk.xattn
+        ox = flash_attention(A.proj(hx, xa.wq), A.proj(enc, xa.wk),
+                             A.proj(enc, xa.wv), causal=False)
+        x = x + A.out_proj(ox, xa.wo)
+        return x + blk.mlp(blk.norm2(x))
 
     def _encoder(self, frames):
         cfg = self.cfg
@@ -233,12 +277,7 @@ class LM(nn.Module):
         enc = enc + L.sinusoidal_pos(enc.shape[1], cfg.d_model, enc.dtype,
                                      device=enc.device)[None]
         for blk in self.enc_blocks:
-            h = blk.norm1(enc)
-            a = blk.attn
-            o = flash_attention(A.proj(h, a.wq), A.proj(h, a.wk),
-                                A.proj(h, a.wv), causal=False)
-            enc = enc + A.out_proj(o, a.wo)
-            enc = enc + blk.mlp(blk.norm2(enc))
+            enc = self._remat(self._enc_block, enc, blk)
         return self.enc_norm(enc)
 
     def _forward_encdec(self, tokens, frames):
@@ -248,21 +287,10 @@ class LM(nn.Module):
         x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype,
                                  device=x.device)[None]
         for blk in self.blocks:
-            h = blk.norm1(x)
-            a = blk.attn
-            o = flash_attention(A.proj(h, a.wq), A.proj(h, a.wk),
-                                A.proj(h, a.wv), causal=True)
-            x = x + A.out_proj(o, a.wo)
-            hx = blk.norm_x(x)
-            xa = blk.xattn
-            ox = flash_attention(A.proj(hx, xa.wq), A.proj(enc, xa.wk),
-                                 A.proj(enc, xa.wv), causal=False)
-            x = x + A.out_proj(ox, xa.wo)
-            x = x + blk.mlp(blk.norm2(x))
+            x = self._remat(self._dec_block, x, blk, enc)
         return self._logits(x)
 
     # ----- loss -------------------------------------------------------------
-    @torch.inference_mode()
     def loss(self, batch) -> torch.Tensor:
         logits = self.forward(batch["tokens"], batch.get("extra"))
         labels = batch["labels"]
@@ -420,7 +448,6 @@ class LM(nn.Module):
             x = x + blk.mlp(blk.norm2(x))
         return self._logits(x), cache
 
-    @torch.inference_mode()
     def encode(self, frames):
         """encdec only: the encoder's output and every decoder layer's
         cross K/V, stacked (L, B, T, nkv, hd)."""
