@@ -144,9 +144,9 @@ Phases (any failure exits non-zero before the last line):
       and on an sf 0.002 mesh database (128 words a shard, shards of
       padding only, a selection of nothing), whose 27 specs equal
       ORACLE. A host profile of Q6 on the mesh. A table per query:
-      execute_ms on the mesh against single-device (timed in turns:
-      mesh, single, single, mesh), the shards' card time in turn on one
-      stream against
+      execute_ms on the mesh against single-device (one warm call each,
+      mesh then single; four turns until PR 25, cut for path m's time),
+      the shards' card time in turn on one stream against
       the single launch, each side's summed bound, launches. One DML
       round (insert 32, delete 16, update 32 on lineitem), then Q6 equal
       to the mutable table and lineitem sharded again. Where there are
@@ -179,9 +179,9 @@ Phases (any failure exits non-zero before the last line):
       max|logits|) (at gemma2's head width the reference's own bf16 gap
       exceeds the smoke tolerance: ``tests/test_torch_lm.py::
       test_bf16_decode_gap_at_gemma2_head_width``); then k2's card-against-
-      CPU check in float32. llama4-maverick is left out with its reason
-      printed (one MoE layer alone is 32 GB in bf16). No kernel of the
-      table runs on path k.
+      CPU check in float32. llama4-maverick runs in path m3 (one MoE layer
+      alone is 32 GB in bf16: it is served on a mesh with its experts
+      over ``model``). No kernel of the table runs on path k.
    l. The LM training path (``launch.train``, ``launch.steps``, ``optim``,
       ``checkpoint``, ``data.pipeline``). l1: ``PimDataSelector`` over
       ``CorpusMeta.synthetic(10_000_000, seed=0)`` on the card (47 planes
@@ -203,6 +203,38 @@ Phases (any failure exits non-zero before the last line):
       and parameters finite, each step's time. Only ``eq_imm`` and
       ``cmp_imm`` launch (the admissions), then they are held against
       their plain versions at l1's shapes.
+   m. The mesh and dry-run tooling (``launch.mesh``, ``launch.steps``'
+      sharded steps, ``distributed.sharding``/``sharded_steps``/
+      ``pipeline_parallel``, ``launch.elastic``, ``launch.dryrun``), with
+      seeded random weights. m1: ``train(mesh=make_debug_mesh(2, 4))`` on
+      qwen2-0.5b at full width and depth (bf16, remat, AdamW, the
+      admission) at batch 4 x 512 for 4 steps, the parameters and AdamW
+      state the plan's pieces on the one card: warm ms a step, tok/s, the
+      plan's bytes a position against the pieces resident, the bytes
+      moved between positions a step, ``max_memory_allocated``; then
+      lm-12m in float32, 3 steps on the mesh against 3 on one device from
+      one seed: losses and grad norms within 1e-5 relative, parameters
+      within 1e-5 x max(1, max|p|). m2: ``serve(qwen2-0.5b, batch 4,
+      max_len=16384, mesh=(2, 4))``, the K/V cut over the sequence and
+      attended piece by piece: its 16 greedy tokens a row equal one
+      device's. m3: llama4-maverick-400b-a17b at full width cut to 1
+      layer (16.1 B expert weights, 36.7 GB of bf16 pieces), drawn on the
+      card and cut into a (1, 4) mesh's pieces, the experts over
+      ``model``: 8 greedy steps at batch 4, ids in range, the mesh's
+      decode logits against its forward within the reference's bf16
+      tolerance, ``max_memory_allocated`` against the plan. m4:
+      ``pipeline_apply``, 4 stages x 8 microbatches of 16 x 4,096 float32,
+      equal to the direct composition within 1e-5, the bubble fraction.
+      m5: lm-12m saved after 2 steps on (2, 4), restored with
+      ``remesh_and_restore(..., 4, model_parallel=2)`` onto (2, 2): every
+      leaf bit for bit, 2 more steps within rtol 1e-5 of an uninterrupted
+      4-step run. m6: ``launch.dryrun.run_cell`` for qwen2-0.5b at the
+      four shapes on both production meshes and llama4-maverick at
+      ``train_4k`` on 16 x 16, on fake tensors in child processes (no
+      card) started before path a: GB a position, fits (80 GB), FLOPs a
+      position, the roofline terms and each cell's seconds (two child
+      processes, half the cells' time each). Only m1's
+      admission launches kernels of the table (``eq_imm``/``cmp_imm``).
    Then every kernel against its plain version bit for bit at those SF 1
    shapes, and the times: first the timing floor (an empty kernel timed
    the same way, after a 64 MB write flush, a read flush and none); per
@@ -223,7 +255,7 @@ Phases (any failure exits non-zero before the last line):
    card.
 6. One ``{"kernels": [...]}`` JSON line (eight kernels; ``fused_program``
    over the programs of paths a, b, f and g; launches of paths a-j, the
-   examples and l), then
+   examples, l and m), then
    ``{"ok": true, ...}`` last.
 
 Seeds fix the data; nothing is read from outside the checkout.
@@ -2538,8 +2570,9 @@ def phase_mesh_path(db, path_a, path_b, flush, peaks) -> dict:
           f"only, Qmm_empty selecting nothing); sf 0.002 == ORACLE; "
           f"distributed_filter_aggregate == numpy", flush=True)
 
-    # execute_ms of both databases in turns (mesh, single, single, mesh),
-    # both warm, to a host read-back.
+    # execute_ms of both databases, one warm call each (mesh, then
+    # single), to a host read-back: cut from four turns (mesh, single,
+    # single, mesh) to two in PR 25, for path m's time.
     def wall_ms(d, spec) -> float:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2547,11 +2580,13 @@ def phase_mesh_path(db, path_a, path_b, flush, peaks) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3
 
-    print("query     mesh_execute_ms    single_execute_ms  shards_kernel_ms  "
+    print("path j: the execute_ms table times each database once a spec "
+          "(cut from two turns each, for path m)", flush=True)
+    print("query     mesh_execute_ms  single_execute_ms  shards_kernel_ms  "
           "single_kernel_ms  shards_bound_ms  single_bound_ms  "
           "shards_mat_ms  launches")
     for spec in specs + hosts:
-        m1, s1, s2, m2 = (wall_ms(d, spec) for d in (dbm, db, db, dbm))
+        m1, s1 = (wall_ms(d, spec) for d in (dbm, db))
         ps = (path_b if spec.host is not None else path_a)["by_query"][
             spec.name]
         k_ms, b_ms, m_ms = (timed if spec.host is None else h_timed)[
@@ -2559,7 +2594,7 @@ def phase_mesh_path(db, path_a, path_b, flush, peaks) -> dict:
         sb = sum(bound_s(p["bytes"], p["logic"], p["popc"], peaks)[0]
                  for p in ps) * 1e3
         n_launch = len(ps) * n_sh * (2 if spec.host is not None else 1)
-        print(f"{spec.name:9s} {m1:8.3f}/{m2:8.3f} {s1:9.3f}/{s2:9.3f} "
+        print(f"{spec.name:9s} {m1:15.3f} {s1:18.3f} "
               f"{k_ms:17.4f} {sum(p['kernel_ms'] for p in ps):17.4f} "
               f"{b_ms:16.5f} {sb:16.5f} {m_ms:14.4f} {n_launch:9d}",
               flush=True)
@@ -2656,8 +2691,9 @@ def phase_example() -> dict:
 
 # -- path k: the LM serving path ----------------------------------------------
 # k3's architectures at full width, each cut in depth to fit the time limit
-# (None: all layers). llama4-maverick is left out: one of its MoE layers
-# alone holds 3 x 128 x 5,120 x 8,192 expert weights (32 GB in bf16).
+# (None: all layers). llama4-maverick runs in path m3, on a mesh: one of
+# its MoE layers alone holds 3 x 128 x 5,120 x 8,192 expert weights (32 GB
+# in bf16).
 LM_CUTS = (("gemma2-9b", 2), ("olmoe-1b-7b", 2), ("paligemma-3b", 2),
            ("qwen1.5-0.5b", 2), ("stablelm-3b", 2), ("whisper-small", None),
            ("xlstm-1.3b", 8), ("zamba2-7b", 7))
@@ -2850,9 +2886,9 @@ def phase_lm(card: str) -> None:
                time.perf_counter() - t0, tps, bf16, f32, cvc, card)
         del model, logits, dec
         torch.cuda.empty_cache()
-    print("path k: llama4-maverick-400b-a17b not run: one MoE layer holds "
-          "3 x 128 x 5,120 x 8,192 = 16.1 B expert weights (32 GB bf16); "
-          "it waits for sharded serving", flush=True)
+    print("path k: llama4-maverick-400b-a17b runs in path m3 (one MoE layer "
+          "holds 16.1 B expert weights, 32 GB bf16: served with its experts "
+          "over a mesh's model axis)", flush=True)
     launches = read_launches()
     if any(launches.values()):
         fail(f"path k launched a kernel of the table: {launches}")
@@ -2867,6 +2903,7 @@ def phase_lm(card: str) -> None:
 # lm-12m at its default batch (8 x 256) card against CPU, then one step of
 # every other block pattern at k3's cuts (LM_CUTS) and llama4's smoke size.
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_RESUME_AT = 4, 512, 8, 4
+MESH_LM = (2, 4)
 ADMIT_N = 10_000_000
 L2_STEPS = 3
 L2_ARCHS = ("olmoe-1b-7b", "gemma2-9b", "xlstm-1.3b", "zamba2-7b",
@@ -3161,6 +3198,388 @@ def phase_train(card) -> dict:
     return {"launches": launches, "worst": worst}
 
 
+# -- path m: the mesh and dry-run tooling --------------------------------------
+# m1/m2 on a (2, 4) mesh of the one card, m3 on (1, 4); m6's dry-run cells
+# run on fake tensors in two background processes started before path a
+# (the first four cells take about as long as the other five).
+M1_STEPS, M3_STEPS, M2_SLOTS = 4, 8, 16384
+M4_STAGES, M4_MICRO, M4_MB, M4_D = 4, 8, 16, 4096
+DRYRUN_CELLS = [("qwen2-0.5b", s, mp) for s in
+                ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+                for mp in (False, True)] + \
+    [("llama4-maverick-400b-a17b", "train_4k", False)]
+
+
+def start_dryruns():
+    """m6: ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` in two child
+    processes (CPU only, fake tensors: no card), each a half of the cells
+    by their time, its output to a temporary file; returned to be read
+    after path m."""
+    import atexit
+    import os
+    import tempfile
+    halves = (DRYRUN_CELLS[:4], DRYRUN_CELLS[4:])
+    runs = []
+    for cells in halves:
+        out = tempfile.TemporaryFile(mode="w+")
+        code = (
+            "import json, sys, time\n"
+            "sys.path.insert(0, 'src')\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            f"for arch, shape, multi in {cells!r}:\n"
+            "    t0 = time.perf_counter()\n"
+            "    d = run_cell(arch, shape, multi)\n"
+            "    d['wall_s'] = time.perf_counter() - t0\n"
+            "    print('CELL ' + json.dumps(d, default=float), flush=True)\n")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code],
+            cwd=Path(__file__).resolve().parent, stdout=out,
+            stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        runs.append((proc, out))
+    return runs, time.perf_counter()
+
+
+def mesh_m1(card) -> None:
+    """m1: ``train(mesh=make_debug_mesh(2, 4))`` on qwen2-0.5b at full
+    width and depth (bf16, remat, AdamW, the admission) at l1's batch;
+    then lm-12m in float32, 3 steps on the mesh against 3 on one device
+    from one seed's weights."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import ShapeConfig
+    from repro_torch.distributed import sharded_steps as ss
+    from repro_torch.distributed.sharding import ShardStore, tree_items
+    from repro_torch.examples.train_lm import SMALL
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.convert import reference_params
+    cfg = get_config("qwen2-0.5b")
+    shape = ShapeConfig("m1", TRAIN_S, TRAIN_B, "train")
+    mesh = make_debug_mesh(*MESH_LM)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    t0 = time.perf_counter()
+    params, state, losses = train(cfg, shape, steps=M1_STEPS, log_every=0,
+                                  history=hist, mesh=mesh)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train_finite("m1", hist)
+    fn = steps_mod.build_train_step(cfg, shape, mesh=mesh).fn
+    n_sl = len(fn.mm.batch_slices(TRAIN_B))
+    parts = ss.plan_parts(fn.mm, "train", TRAIN_B // n_sl, TRAIN_S,
+                          fn.o_struct, fn.o_shard)
+    resident = ShardStore(mesh).resident_bytes({"params": params,
+                                                "opt": state})
+    warm = statistics.median(h["seconds"] for h in hist[1:])
+    n_pos = len(mesh.devices)
+    print(f"path m1: train qwen2-0.5b (bf16, remat, AdamW) on a {MESH_LM} "
+          f"mesh of the card, batch {TRAIN_B} x {TRAIN_S}, {M1_STEPS} steps "
+          f"in {wall:.1f} s: step 1 {hist[0]['seconds'] * 1e3:.1f} ms, warm "
+          f"median {warm * 1e3:.1f} ms ({TRAIN_B * TRAIN_S / warm:.0f} "
+          f"tok/s); plan {sum(parts.values()) / 1e9:.3f} GB a position x "
+          f"{n_pos} = {sum(parts.values()) * n_pos / 1e9:.3f} GB ("
+          + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+          + f"); resident params + AdamW pieces "
+          f"{sum(resident.values()) / 1e9:.3f} GB; moved between positions "
+          f"{hist[-1]['moved_bytes'] / 1e9:.3f} GB a step; "
+          f"max_memory_allocated {peak / 1e9:.2f} GB; losses "
+          f"{[round(x, 4) for x in losses]}; {card}", flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(SMALL, dtype="float32")
+    shape = ShapeConfig("m1b", 256, 8, "train")
+    sides = {}
+    for where in ("mesh", "card"):
+        hist = []
+        out = train(small, shape, steps=L2_STEPS, log_every=0,
+                    use_pim_selector=False, history=hist,
+                    generator=torch.Generator().manual_seed(SEED),
+                    mesh=mesh if where == "mesh" else None)
+        tree = (fn.mm.gather_tree(out[0]) if where == "mesh" else
+                reference_params(out[0]))
+        sides[where] = (hist, dict(tree_items(tree)))
+    worst = 0.0
+    for a, b in zip(sides["mesh"][0], sides["card"][0]):
+        for k in ("loss", "grad_norm"):
+            rel = abs(a[k] - b[k]) / abs(b[k])
+            if not rel <= 1e-5:
+                fail(f"path m1 lm-12m step {b['step']}: {k} mesh {a[k]} one "
+                     f"device {b[k]} (rtol 1e-5)")
+            worst = max(worst, rel)
+    pworst = 0.0
+    for path, want in sides["card"][1].items():
+        got = sides["mesh"][1][path]
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= 1e-5 * scale:
+            fail(f"path m1 lm-12m: {path} mesh against one device {err} "
+                 f"(bound {1e-5 * scale})")
+        pworst = max(pworst, err / scale)
+    print(f"path m1 lm-12m: float32 batch 8 x 256, {L2_STEPS} steps on the "
+          f"{MESH_LM} mesh against one device: losses and grad norms within "
+          f"{worst:.2e} relative (1e-5), parameters within {pworst:.2e} x "
+          f"max(1, max|p|) (1e-5); {card}", flush=True)
+
+
+def mesh_m2(card) -> None:
+    """m2: ``serve`` of qwen2-0.5b at batch 4 with a 16,384-slot cache on
+    the (2, 4) mesh (the K/V cut over the sequence): its 16 greedy tokens
+    a row equal one device's."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import serve
+    cfg = get_config("qwen2-0.5b")
+    mesh = make_debug_mesh(*MESH_LM)
+    spec = ShardingRules(mesh, cfg).kv_cache_spec(
+        (cfg.n_layers, 4, M2_SLOTS, cfg.n_kv_heads, cfg.head_dim))
+    if spec[2] != "model":
+        fail(f"path m2: the cache spec {spec} does not cut the sequence")
+    t0 = time.perf_counter()
+    seq_m, tps_m = serve(cfg, 4, 1, LM_STEPS, mesh=mesh, max_len=M2_SLOTS)
+    t_m = time.perf_counter() - t0
+    seq_s, tps_s = serve(cfg, 4, 1, LM_STEPS, max_len=M2_SLOTS)
+    if not np.array_equal(seq_m, seq_s):
+        fail(f"path m2: mesh tokens {seq_m.tolist()} != one device's "
+             f"{seq_s.tolist()}")
+    print(f"path m2: serve qwen2-0.5b batch 4, {LM_STEPS} steps, "
+          f"{M2_SLOTS}-slot cache {spec} on the {MESH_LM} mesh: {tps_m:.1f} "
+          f"tok/s ({t_m:.1f} s with the weights' draw and cut) against "
+          f"{tps_s:.1f} on one device; the same greedy tokens; {card}",
+          flush=True)
+
+
+def mesh_m3(card) -> None:
+    """m3: llama4-maverick-400b-a17b at full width, cut to 1 layer, its
+    weights drawn on the card (an expert stack a block of experts at a
+    time) and cut into a (1, 4) mesh's pieces, the experts over
+    ``model``; 8 greedy steps at batch 4, ids in range; decode logits
+    against the mesh's forward within the reference's bf16 tolerance."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharded_steps as ss
+    from repro_torch.distributed.sharding import ShardStore
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import _greedy, mesh_serving
+    full = get_config("llama4-maverick-400b-a17b")
+    cfg = dataclasses.replace(full, n_layers=1)
+    mesh = make_debug_mesh(1, 4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, params, cache, tokens = mesh_serving(cfg, mesh, 4, 1 + M3_STEPS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if step.mm.expert[("blocks", "moe", "w_gate")] is None:
+        fail("path m3: the expert stacks are not over model")
+    seq, tps = _greedy(lambda c, t, p: step(params, c, t, p), cache, tokens,
+                       1 + M3_STEPS, "cuda")
+    if seq.shape != (4, 1 + M3_STEPS) or not (
+            (seq >= 0) & (seq < cfg.vocab)).all():
+        fail(f"path m3: greedy ids {seq.shape} in [{seq.min()}, "
+             f"{seq.max()}] (want (4, {1 + M3_STEPS}) in [0, {cfg.vocab}))")
+    head = torch.from_numpy(seq[:, :M3_STEPS]).cuda()
+    fwd = ss.MeshPrefillStep(step.mm)(params, head)
+    c2 = step.init_cache(4, M3_STEPS)
+    dec = torch.cat([step(params, c2, head[:, t:t + 1], t)[0]
+                     for t in range(M3_STEPS)], dim=1)
+    bound = lm_bf16_bound(fwd)
+    gap = lm_max_diff(dec, fwd)
+    if not gap <= bound:
+        fail(f"path m3: decode logits differ from forward by {gap} (bound "
+             f"{bound})")
+    peak = torch.cuda.max_memory_allocated()
+    parts = ss.plan_parts(step.mm, "decode", 4, 1 + M3_STEPS,
+                          cache_struct=step.mm.model.init_cache(
+                              4, 1 + M3_STEPS))
+    held = sum(ShardStore(mesh).resident_bytes({"p": params}).values())
+    experts = 3 * cfg.moe.n_experts * cfg.d_model * cfg.moe.d_ff_expert
+    print(f"path m3: llama4-maverick-400b-a17b at full width, 1 of "
+          f"{full.n_layers} layers ({experts / 1e9:.1f} B expert weights), "
+          f"{held / 1e9:.2f} GB of bf16 pieces on a (1, 4) mesh of the card, "
+          f"experts over model: drawn and cut in {build_s:.1f} s; {M3_STEPS} "
+          f"greedy steps at batch 4 {tps:.2f} tok/s, ids in range; bf16 "
+          f"decode-forward gap {gap:.4f} (tolerance {bound:.4f}); "
+          f"max_memory_allocated {peak / 1e9:.2f} GB against the plan's "
+          f"{sum(parts.values()) * 4 / 1e9:.2f} GB (4 positions x "
+          f"{sum(parts.values()) / 1e9:.3f}); {card}", flush=True)
+    del step, params, cache, fwd, dec, c2
+    torch.cuda.empty_cache()
+
+
+def mesh_m4(card) -> None:
+    """m4: ``pipeline_apply``, 4 stages on a (1, 4) mesh of the card, 8
+    microbatches of 16 x 4,096 in float32, against the direct
+    composition within 1e-5."""
+    from repro_torch.distributed.pipeline_parallel import (bubble_fraction,
+                                                           pipeline_apply)
+    from repro_torch.launch.mesh import make_debug_mesh
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ws = torch.randn((M4_STAGES, M4_D, M4_D), generator=gen,
+                     device="cuda") / M4_D ** 0.5
+    xs = torch.randn((M4_MICRO, M4_MB, M4_D), generator=gen, device="cuda")
+
+    def stage(w, x):
+        return torch.tanh(x @ w["w"])
+    mesh = make_debug_mesh(1, M4_STAGES)
+    pipeline_apply(mesh, stage, {"w": ws}, xs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pipeline_apply(mesh, stage, {"w": ws}, xs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    y = xs
+    for s in range(M4_STAGES):
+        y = torch.tanh(y @ ws[s])
+    err = lm_max_diff(got, y)
+    if not err <= 1e-5:
+        fail(f"path m4: pipeline_apply differs from the composition by {err}")
+    print(f"path m4: pipeline_apply {M4_STAGES} stages x {M4_MICRO} "
+          f"microbatches of {M4_MB} x {M4_D} float32 on a (1, {M4_STAGES}) "
+          f"mesh of the card: {ms:.2f} ms warm, == the direct composition "
+          f"within {err:.2e} (1e-5); bubble fraction "
+          f"{bubble_fraction(M4_STAGES, M4_MICRO):.4f}; {card}", flush=True)
+
+
+def mesh_m5(card) -> None:
+    """m5: lm-12m saved after 2 steps on the (2, 4) mesh, restored with
+    ``remesh_and_restore(..., n_surviving=4, model_parallel=2)``: every
+    leaf bit for bit; 2 further steps give an uninterrupted 4-step run's
+    losses."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs.common import ShapeConfig
+    from repro_torch.data.pipeline import TokenBatcher
+    from repro_torch.distributed.sharding import gather, tree_items
+    from repro_torch.examples.train_lm import SMALL
+    from repro_torch.launch import input_specs
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.elastic import remesh_and_restore
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.optim import optimizers as opt
+    cfg = dataclasses.replace(SMALL, dtype="float32")
+    shape = ShapeConfig("m5", 256, 8, "train")
+    kw = dict(log_every=0, use_pim_selector=False,
+              mesh=make_debug_mesh(*MESH_LM))
+    _, _, full = train(cfg, shape, steps=4,
+                       generator=torch.Generator().manual_seed(SEED), **kw)
+    root = Path(__file__).resolve().parent
+    ckdir = tempfile.mkdtemp(prefix=".smoke_ckpt_", dir=root)
+    try:
+        params, state, _ = train(
+            cfg, shape, steps=2, ckpt_dir=ckdir, ckpt_every=2,
+            generator=torch.Generator().manual_seed(SEED), **kw)
+        p_struct = input_specs.params_struct(cfg)
+        o_struct = opt.make_optimizer(cfg.optimizer)[0](p_struct)
+        t0 = time.perf_counter()
+        step, p2, o2, mesh2 = remesh_and_restore(
+            ckdir, cfg, shape, 4, p_struct, o_struct, model_parallel=2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    n = 0
+    for (path, a), (_, b) in zip(tree_items({"params": p2, "opt": o2}),
+                                 tree_items({"params": params,
+                                             "opt": state})):
+        x, y = gather(a), gather(b)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            fail(f"path m5: restored leaf {path} differs from the saved one")
+        n += 1
+    fn = steps_mod.build_train_step(cfg, shape, mesh=mesh2).fn
+    batcher = TokenBatcher(cfg.vocab, shape.global_batch, shape.seq_len, None)
+    batcher.cursor = step
+    losses = []
+    for _ in range(2):
+        batch = steps_mod.to_device(batcher.next_batch(), "cuda")
+        p2, o2, m = fn(p2, o2, batch)
+        losses.append(float(m["loss"]))
+    rel = float(np.max(np.abs(np.asarray(losses) - full[2:])
+                       / np.abs(full[2:])))
+    if not rel <= 1e-5:
+        fail(f"path m5: resumed losses {losses} against {full[2:]} (rtol "
+             "1e-5)")
+    print(f"path m5: lm-12m saved at step 2 on {MESH_LM}, restored onto the "
+          f"{mesh2.shape} mesh of 4 survivors in {restore_s:.2f} s, {n} "
+          f"leaves bit for bit; steps 3-4 within {rel:.2e} of the "
+          f"uninterrupted losses (rtol 1e-5); {card}", flush=True)
+
+
+def collect_dryruns(dry) -> None:
+    """m6: the background dry-run's cells: GB a position, fits (80 GB),
+    FLOPs a position and the dominant roofline term, each cell's wall."""
+    runs, t_start = dry
+    cells, rcs, texts = [], [], []
+    for proc, out in runs:
+        rcs.append(proc.wait(timeout=900))
+        out.seek(0)
+        texts.append(out.read())
+        out.close()
+        cells += [json.loads(ln[5:]) for ln in texts[-1].splitlines()
+                  if ln.startswith("CELL ")]
+    if any(rcs) or len(cells) != len(DRYRUN_CELLS):
+        fail(f"path m6: the dry-run processes exited {rcs} with {len(cells)} "
+             f"of {len(DRYRUN_CELLS)} cells:\n" + "\n".join(
+                 t[-2000:] for t in texts))
+    print("path m6 arch                       shape        mesh      GB/pos  "
+          "fits   TFLOP/pos  dominant    compute_s  memory_s  coll_s  "
+          "method        wall_s", flush=True)
+    for d in cells:
+        if d["status"] == "skipped":
+            print(f"m6   {d['arch']:26s} {d['shape']:12s} {d['mesh']:8s} "
+                  f"skipped: {d['reason'][:60]}", flush=True)
+            continue
+        if d["status"] != "ok":
+            fail(f"path m6 {d['arch']} {d['shape']}: {d}")
+        fc, rl = d["full_compile"], d["roofline"]
+        print(f"m6   {d['arch']:26s} {d['shape']:12s} {d['mesh']:8s} "
+              f"{fc['bytes_per_device'] / 1e9:8.2f} {str(fc['fits']):6s} "
+              f"{d['costs']['flops_per_dev'] / 1e12:10.3f}  "
+              f"{rl['dominant']:10s} {rl['compute_s']:9.4f} "
+              f"{rl['memory_s']:9.4f} {rl['collective_s']:7.4f}  "
+              f"{d['roofline_method']:12s} {d['wall_s']:7.1f}", flush=True)
+    print(f"path m6: {len(cells)} dry-run cells on fake tensors (H100 "
+          f"constants) in {len(runs)} processes beside the card's paths; "
+          f"{time.perf_counter() - t_start:.1f} s from their start to here",
+          flush=True)
+
+
+def phase_mesh_lm(card, dry) -> dict:
+    """Path m: the mesh and dry-run tooling on the card (m1-m5), and the
+    dry-run cells (m6). Only m1's admission launches kernels of the table
+    (``eq_imm``/``cmp_imm``, as l1's). Returns the path's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_path = time.perf_counter()
+    reset_launches()
+    times = {}
+    for name, fn in (("m1", mesh_m1), ("m2", mesh_m2), ("m3", mesh_m3),
+                     ("m4", mesh_m4), ("m5", mesh_m5)):
+        t0 = time.perf_counter()
+        fn(card)
+        times[name] = round(time.perf_counter() - t0, 1)
+    launches = read_launches()
+    others = {k: v for k, v in launches.items()
+              if k not in ("eq_imm", "cmp_imm") and v}
+    if others:
+        fail(f"path m launched {launches}: want eq_imm and cmp_imm only")
+    t0 = time.perf_counter()
+    collect_dryruns(dry)
+    times["m6 wait"] = round(time.perf_counter() - t0, 1)
+    print(f"phase 4m ok: qwen2-0.5b trained and served on a {MESH_LM} mesh "
+          f"of the card, llama4-maverick at full width served with its "
+          f"experts over model, pipeline and elastic restore checked, "
+          f"{len(DRYRUN_CELLS)} dry-run cells; launches {launches}; seconds "
+          f"{times}; {time.perf_counter() - t_path:.1f} s", flush=True)
+    return {"launches": launches}
+
+
 def lint_on_card() -> None:
     """``repro_torch.analysis.lint`` with its database and DML writes on
     the card, at SF 0.002: it prints its totals; 0 errors or the run
@@ -3214,6 +3633,7 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
           flush=True)
 
+    dry = start_dryruns()
     t0 = time.perf_counter()
     libs = build.build_library()
     print(f"phase 2 ok: built {', '.join(sorted(libs))} in "
@@ -3247,6 +3667,7 @@ def main() -> None:
     ex_launches = phase_example()
     phase_lm(card)
     path_l = phase_train(card)
+    path_m = phase_mesh_lm(card, dry)
     j_launches = {k: v + ex_launches[k]
                   for k, v in path_j["launches"].items()}
     phase_cost_model(db, path_a["results"], eager)
@@ -3268,7 +3689,8 @@ def main() -> None:
         a["launches"] += (eager_launches[a["name"]] + g_launches[a["name"]]
                           + h_launches[a["name"]] + i_launches[a["name"]]
                           + j_launches[a["name"]]
-                          + path_l["launches"][a["name"]])
+                          + path_l["launches"][a["name"]]
+                          + path_m["launches"][a["name"]])
         a["max_abs_err"] = max(
             a["max_abs_err"], filt_worst["filter_sum"]
             if a["name"] == "filter_sum" else max(filt_worst["filter"],

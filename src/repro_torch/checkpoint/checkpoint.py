@@ -14,7 +14,11 @@ A tree is nested dicts, NamedTuples and sequences of tensors (or numpy
 arrays), ``None`` for an absent leaf; the leaf paths are the reference's
 (``params/blocks/attn/wq``, ``opt/inner/m/...``). bf16 leaves go to disk as
 float32 and come back as bf16 (bit for bit), as in the reference.
-``restore`` places the leaves on ``device``, which defaults to ``"cuda"``.
+``restore`` places the leaves on ``device``, which defaults to ``"cuda"``,
+or with ``shardings`` (a tree of ``distributed.sharding.NamedSharding``)
+straight into the pieces of a mesh. A leaf held as pieces
+(``ShardedTensor``) is saved whole, assembled on the host, as the
+reference saves a sharded state.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import ShardedTensor, ShardStore
 from ..models.lm import require_cuda
 
 
@@ -77,9 +82,18 @@ def _unflatten_into(treedef_example, flat: Dict[str, Any]):
 def _to_host(v) -> Optional[np.ndarray]:
     """A leaf as a numpy array of its own (a copy: the caller may update
     the tensor in place while the writer runs); bf16 as float32, which
-    numpy can store (``restore`` casts back per the example)."""
+    numpy can store (``restore`` casts back per the example); a sharded
+    leaf whole."""
     if v is None:
         return None
+    if isinstance(v, ShardedTensor):
+        out = None
+        for p in v.pieces:
+            part = _to_host(p.data)
+            if out is None:
+                out = np.empty(v.shape, dtype=part.dtype)
+            out[p.index] = part
+        return out
     if isinstance(v, torch.Tensor):
         t = v.detach()
         if t.dtype == torch.bfloat16:
@@ -148,11 +162,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, example_tree, step: Optional[int] = None,
-            device="cuda") -> Tuple[int, Any]:
+            device="cuda", shardings=None) -> Tuple[int, Any]:
     """Restore the newest complete checkpoint (or ``step``) into the
     structure of ``example_tree``: each leaf a tensor on ``device`` with
-    the example leaf's dtype."""
-    require_cuda(device)
+    the example leaf's dtype; with ``shardings`` (``example_tree``'s
+    structure) each leaf cut from the host copy into its pieces on the
+    sharding's mesh (``device`` unused), never whole on a device."""
+    if shardings is None:
+        require_cuda(device)
+    else:
+        stores = {}
+        sh = dict(_flatten(shardings))
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -165,7 +185,13 @@ def restore(ckpt_dir: str, example_tree, step: Optional[int] = None,
                 flat[k] = None
                 continue
             t = torch.from_numpy(data[k])
-            dtype = (v.dtype if isinstance(v, torch.Tensor) else
-                     torch.from_numpy(np.empty(0, np.asarray(v).dtype)).dtype)
-            flat[k] = t.to(device=device, dtype=dtype)
+            dtype = (v.dtype if isinstance(v, (torch.Tensor, ShardedTensor))
+                     else torch.from_numpy(np.empty(0, np.asarray(v).dtype))
+                     .dtype)
+            if shardings is None:
+                flat[k] = t.to(device=device, dtype=dtype)
+                continue
+            ns = sh[k]
+            store = stores.setdefault(ns.mesh, ShardStore(ns.mesh))
+            flat[k] = store.shard(t.to(dtype), ns)
     return step, _unflatten_into(example_tree, flat)

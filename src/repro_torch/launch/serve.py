@@ -41,20 +41,26 @@ def _sync(device) -> None:
 
 
 @torch.inference_mode()
-def greedy_decode(model, tokens, max_len: int, *, cross=None):
+def greedy_decode(model, tokens, max_len: int, *, cross=None,
+                  cache_len=None):
     """Greedy-decode from first tokens (B, 1) to ``max_len`` positions
     through ``model.decode_step`` (``cross``: an encdec model's stacked
-    cross K/V from ``encode``). Returns (seq (B, max_len) numpy ids,
-    tokens/s over the ``max_len - 1`` steps)."""
-    B = tokens.shape[0]
-    cache = model.init_cache(B, max_len)
+    cross K/V from ``encode``; ``cache_len``: the cache's slots, default
+    ``max_len``). Returns (seq (B, max_len) numpy ids, tokens/s over the
+    ``max_len - 1`` steps)."""
+    cache = model.init_cache(tokens.shape[0], cache_len or max_len)
     if cross is not None:
         cache["cross"] = cross
+    return _greedy(model.decode_step, cache, tokens, max_len, model.device)
+
+
+def _greedy(step, cache, tokens, max_len: int, device):
+    B = tokens.shape[0]
     out = [tokens]
-    _sync(model.device)
+    _sync(device)
     t0 = time.perf_counter()
     for pos in range(max_len - 1):
-        logits, cache = model.decode_step(cache, tokens, pos)
+        logits, cache = step(cache, tokens, pos)
         tokens = logits[:, -1:].argmax(-1)
         out.append(tokens)
     seq = torch.cat(out, dim=1).cpu().numpy()
@@ -62,15 +68,50 @@ def greedy_decode(model, tokens, max_len: int, *, cross=None):
     return seq, B * (max_len - 1) / dt
 
 
+def mesh_serving(cfg, mesh, batch: int, max_len: int, generator=None):
+    """``serve``'s model on ``mesh``: its weights drawn as on one device
+    (on the first position's device) and cut into the plan's pieces,
+    leaf by leaf; its first tokens (and encdec frames, encoded on the
+    mesh). Returns (step, params, cache, first tokens). Raises before
+    drawing anything where the plan does not fit the devices."""
+    from repro_torch.distributed import sharded_steps as ss
+    from repro_torch.models.lm import LM, default_generator
+    dev = mesh.devices[0]
+    mm = ss.MeshModel(cfg, mesh)
+    step = ss.MeshServeStep(mm)
+    ss.admit(mesh, ss.plan_parts(
+        mm, "decode", batch // len(mm.batch_slices(batch)), max_len,
+        cache_struct=mm.model.init_cache(batch, max_len)))
+    gen = generator if generator is not None else default_generator(dev)
+    params = mm.shard_model(LM(cfg, device=dev, generator=gen))
+    cross = None
+    if cfg.block_pattern == "encdec":
+        frames = torch.randn((batch, 64, cfg.d_model), generator=gen,
+                             device=gen.device).to(torch.bfloat16)
+        cross = ss.MeshPrefillStep(mm).encode(params, frames.to(dev))
+    tokens = torch.randint(0, cfg.vocab, (batch, 1), generator=gen,
+                           device=gen.device).to(dev)
+    return step, params, step.init_cache(batch, max_len, cross=cross), tokens
+
+
 @torch.inference_mode()
 def serve(cfg, batch: int, prompt_len: int, gen_len: int, *, device="cuda",
-          generator=None):
+          generator=None, mesh=None, max_len=None):
     """Build ``cfg``'s model with weights drawn from ``generator`` (default:
     seeded with 0 on ``device``), draw ``batch`` one-token prompts from it
     (and for encdec 64 stub frames, encoded into the cross cache), and
     greedy-decode ``prompt_len + gen_len`` positions. Returns (seq,
-    tokens/s) like the reference's ``serve``."""
+    tokens/s) like the reference's ``serve``; ``max_len``: the cache's
+    slots (default ``prompt_len + gen_len``). With ``mesh`` the weights
+    and the cache are the plan's pieces on it (``mesh_serving``; the same
+    draws, so the same tokens as on one device)."""
     from repro_torch.models.lm import LM, default_generator
+    n_pos = prompt_len + gen_len
+    if mesh is not None:
+        step, params, cache, tokens = mesh_serving(
+            cfg, mesh, batch, max_len or n_pos, generator)
+        return _greedy(lambda c, t, p: step(params, c, t, p), cache, tokens,
+                       n_pos, mesh.devices[0])
     gen = generator if generator is not None else default_generator(device)
     model = LM(cfg, device=device, generator=gen)
     cross = None
@@ -80,7 +121,8 @@ def serve(cfg, batch: int, prompt_len: int, gen_len: int, *, device="cuda",
         _, cross = model.encode(frames.to(device))
     tokens = torch.randint(0, cfg.vocab, (batch, 1), generator=gen,
                            device=gen.device).to(device)
-    return greedy_decode(model, tokens, prompt_len + gen_len, cross=cross)
+    return greedy_decode(model, tokens, n_pos, cross=cross,
+                         cache_len=max_len)
 
 
 # -- PIMDB query-trace replay ------------------------------------------------
@@ -194,10 +236,18 @@ def serve_db_main(args) -> None:
 
 def serve_lm_main(args) -> None:
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    seq, tps = serve(cfg, args.batch, 1, args.gen_len, device=args.device)
-    print(f"decoded {seq.shape} at {tps:.1f} tok/s ({cfg.name} on "
-          f"{args.device})")
+    mesh = None
+    if args.mesh:
+        mesh = (make_debug_mesh(1, 1, device=args.device) if args.smoke else
+                make_production_mesh(multi_pod=args.multipod,
+                                     device=args.device))
+    seq, tps = serve(cfg, args.batch, 1, args.gen_len, device=args.device,
+                     mesh=mesh)
+    where = args.device if mesh is None else \
+        f"a {mesh.shape} mesh of {args.device}"
+    print(f"decoded {seq.shape} at {tps:.1f} tok/s ({cfg.name} on {where})")
 
 
 def main(argv=None):
@@ -207,6 +257,11 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--mesh", action="store_true",
+                    help="lm: serve on the production mesh (--smoke: the "
+                         "(1, 1) debug mesh), every position on --device")
+    ap.add_argument("--multipod", action="store_true",
+                    help="lm --mesh: the 2 x 16 x 16 mesh")
     ap.add_argument("--sf", type=float, default=0.005)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),

@@ -4,6 +4,12 @@ window, and one-token decode with a KV cache.
 The counterpart of ``repro.models.attention``. Shapes: x (B, S, D); a
 layer's cache (B, S_max, n_kv, hd). ``attention_decode`` writes the new
 K/V into the cache it is given, in place, and returns that cache.
+
+A cache cut along the sequence on a mesh (``StackedPieces``, a layer's
+``SeqPieces``) is attended piece by piece (``sdpa_pieces``), as the
+reference's GSPMD partitions the softmax of a sequence-sharded cache: the
+row max, the exp-sum and the probabilities' weighted sum of V are
+combined across pieces; the cache is never gathered.
 """
 from __future__ import annotations
 
@@ -80,6 +86,76 @@ def _sdpa(q, k, v, mask, cfg):
     return out.reshape(B, S, nh, hd)
 
 
+class SeqPieces:
+    """One layer's K or V cut along the sequence: ``parts`` is a list of
+    (first slot, (B, T_piece, n_kv, hd) tensor), each on its own device."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    @property
+    def shape(self):
+        B, _, n, h = self.parts[0][1].shape
+        return (B, sum(t.shape[1] for _, t in self.parts), n, h)
+
+    def write(self, slot: int, value) -> None:
+        """``value`` (B, 1, n_kv, hd) into absolute slot ``slot``."""
+        for t0, t in self.parts:
+            if t0 <= slot < t0 + t.shape[1]:
+                t[:, slot - t0:slot - t0 + 1] = value.to(t.device, t.dtype)
+                return
+        raise IndexError(f"slot {slot} beyond {self.shape[1]}")
+
+
+class StackedPieces:
+    """A stacked (L, B, T, n_kv, hd) cache leaf cut along T: ``[i]`` is
+    layer i's ``SeqPieces`` (views, so writes land in the pieces)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    @property
+    def shape(self):
+        L, B, _, n, h = self.parts[0][1].shape
+        return (L, B, sum(t.shape[2] for _, t in self.parts), n, h)
+
+    def __getitem__(self, i):
+        return SeqPieces([(t0, t[i]) for t0, t in self.parts])
+
+
+def sdpa_pieces(q, ks: SeqPieces, vs: SeqPieces, valid, cfg):
+    """``_sdpa`` over a sequence-cut cache; ``valid(j)`` the (T,) mask of
+    absolute slots ``j``. Each piece's scores are taken on its device;
+    the global row max, then the sum of exp(s - max), then each piece's
+    probabilities (in ``q``'s dtype) times its V, summed in float32, are
+    combined on ``q``'s device: the same function as ``_sdpa``."""
+    B, S, nh, hd = q.shape
+    nkv = ks.parts[0][1].shape[2]
+    qg = q.reshape(B, S, nkv, nh // nkv, hd)
+    scale = 1.0 / np.sqrt(hd)
+    scores = []
+    for t0, k in ks.parts:
+        s = torch.einsum("bsngh,btnh->bnsgt", qg.to(k.device), k).float() \
+            * scale
+        s = L.softcap(s, cfg.attn_softcap)
+        j = torch.arange(t0, t0 + k.shape[1], device=k.device)
+        scores.append(torch.where(valid(j)[None, None, None, None, :], s,
+                                  NEG))
+    m = None
+    for s in scores:
+        ms = s.amax(-1, keepdim=True).to(q.device)
+        m = ms if m is None else torch.maximum(m, ms)
+    den = sum(torch.exp(s - m.to(s.device)).sum(-1, keepdim=True)
+              .to(q.device) for s in scores)
+    acc = None
+    for s, (_, v) in zip(scores, vs.parts):
+        probs = (torch.exp(s - m.to(s.device)) / den.to(s.device)).to(q.dtype)
+        part = torch.einsum("bnsgt,btnh->bsngh", probs.float(),
+                            v.float()).to(q.device)
+        acc = part if acc is None else acc + part
+    return acc.to(q.dtype).reshape(B, S, nh, hd)
+
+
 def causal_mask(S: int, window: Optional[int] = None, device="cuda"):
     i = torch.arange(S, device=device)[:, None]
     j = torch.arange(S, device=device)[None, :]
@@ -96,12 +172,17 @@ def attention(p: Attention, x, positions, cfg, window: Optional[int] = None):
     return out_proj(_sdpa(q, k, v, mask, cfg), p.wo)
 
 
-def decode_mask(B: int, T: int, pos: int, window: Optional[int], device):
-    """(B, 1, T): slots ``j <= pos`` (and within the window, if set)."""
-    j = torch.arange(T, device=device)
+def decode_valid(j, pos: int, window: Optional[int]):
+    """Slots ``j <= pos`` (and within the window, if set)."""
     valid = j <= pos
     if window is not None:
         valid &= (pos - j) < window
+    return valid
+
+
+def decode_mask(B: int, T: int, pos: int, window: Optional[int], device):
+    """(B, 1, T): ``decode_valid`` of every slot."""
+    valid = decode_valid(torch.arange(T, device=device), pos, window)
     return valid[None, None, :].expand(B, 1, T)
 
 
@@ -113,6 +194,12 @@ def attention_decode(p: Attention, x, pos: int, cache: KVCache, cfg,
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, positions, cfg)
+    if isinstance(cache.k, SeqPieces):
+        cache.k.write(pos, k_new)
+        cache.v.write(pos, v_new)
+        o = sdpa_pieces(q, cache.k, cache.v,
+                        lambda j: decode_valid(j, pos, window), cfg)
+        return out_proj(o, p.wo), cache
     cache.k[:, pos:pos + 1] = k_new.to(cache.k.dtype)
     cache.v[:, pos:pos + 1] = v_new.to(cache.v.dtype)
     mask = decode_mask(B, cache.k.shape[1], pos, window, x.device)
@@ -128,6 +215,9 @@ def cross_attention(p: Attention, x, enc_kv, cfg):
     if p.has_bias:
         q = q + p.bq
     k, v = enc_kv
+    if isinstance(k, SeqPieces):
+        return out_proj(sdpa_pieces(q, k, v, lambda j: torch.ones_like(
+            j, dtype=torch.bool), cfg), p.wo)
     mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool, device=x.device)
     return out_proj(_sdpa(q, k, v, mask, cfg), p.wo)
 

@@ -111,8 +111,15 @@ def reference_tree(leaves: List[RefLeaf],
         node = tree
         for k in leaf.path[:-1]:
             node = node.setdefault(k, {})
-        node[leaf.path[-1]] = torch.stack(vals) if leaf.stacked else vals[0]
+        node[leaf.path[-1]] = _stack(vals) if leaf.stacked else vals[0]
     return tree
+
+
+def _stack(vals):
+    if vals[0].device.type == "meta":     # shapes only (stack on meta is slow)
+        return torch.empty((len(vals),) + tuple(vals[0].shape),
+                           dtype=vals[0].dtype, device="meta")
+    return torch.stack(vals)
 
 
 def reference_params(model: torch.nn.Module) -> dict:

@@ -8,6 +8,8 @@ sliding window reads one static (window + q_block) KV strip per Q block.
 The scores accumulate in float32 and the running output in ``v``'s dtype,
 as the reference's do. ``scaled_dot_product_attention`` would compute a
 different function (no softcap, another accumulation), so it is not used.
+The dry-run's block overrides (``models.scan_utils.FLASH_Q_BLOCK``/
+``FLASH_KV_BLOCK``) replace the block sizes asked for, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import scan_utils
 
 NEG_INF = -1e30
 
@@ -47,6 +51,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     T, nkv = k.shape[1], k.shape[2]
     g = nh // nkv
     scale = 1.0 / np.sqrt(hd)
+    if scan_utils.FLASH_Q_BLOCK:
+        q_block = scan_utils.FLASH_Q_BLOCK
+    if scan_utils.FLASH_KV_BLOCK:
+        kv_block = scan_utils.FLASH_KV_BLOCK
     # A non-power-of-two S (vision-prefixed sequences) takes the largest
     # dividing block at most the one asked for.
     q_block = _largest_divisor_leq(S, min(q_block, S))

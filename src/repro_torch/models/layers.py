@@ -26,13 +26,21 @@ def torch_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
+# A draw of more elements than this goes in blocks along dim 0, so its
+# float32 transient stays at most this size (one of llama4-maverick's
+# expert stacks is 5.4 G elements: 21.5 GB in float32 at once).
+DRAW_BLOCK = 1 << 26
+
+
 class Init:
     """Draws a model's weights with the reference's distributions from one
     ``torch.Generator``, on the generator's device, then moves them to
     ``device``. The draws need not equal JAX's: tests carry the
-    reference's weights across."""
+    reference's weights across. On the ``meta`` device nothing is drawn
+    or allocated (``generator`` may be ``None``): the model then only
+    names its parameters' shapes and dtypes."""
 
-    def __init__(self, device, generator: torch.Generator):
+    def __init__(self, device, generator: Optional[torch.Generator]):
         self.device = torch.device(device)
         self.generator = generator
 
@@ -42,15 +50,34 @@ class Init:
     def normal(self, shape, scale: Optional[float] = None,
                dtype=torch.float32) -> nn.Parameter:
         """``normal(shape) * scale`` drawn in float32, then cast; the
-        reference's ``_init`` (scale defaults to ``1 / sqrt(shape[0])``)."""
+        reference's ``_init`` (scale defaults to ``1 / sqrt(shape[0])``).
+        Past ``DRAW_BLOCK`` elements it is drawn and cast a block of rows
+        at a time, into the output dtype."""
+        shape = tuple(shape)
+        if self.device.type == "meta":
+            return self._param(torch.empty(shape, dtype=dtype,
+                                           device="meta"))
         if scale is None:
             scale = 1.0 / np.sqrt(shape[0])
-        t = torch.randn(tuple(shape), generator=self.generator,
-                        device=self.generator.device, dtype=torch.float32)
-        return self._param((t * scale).to(dtype))
+        gen = self.generator
+        n = math.prod(shape)
+        if n <= DRAW_BLOCK:
+            t = torch.randn(shape, generator=gen, device=gen.device,
+                            dtype=torch.float32)
+            return self._param((t * scale).to(dtype))
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        rows = max(1, DRAW_BLOCK // math.prod(shape[1:]))
+        for r in range(0, shape[0], rows):
+            t = torch.randn((min(rows, shape[0] - r),) + shape[1:],
+                            generator=gen, device=gen.device,
+                            dtype=torch.float32)
+            out[r:r + rows] = (t * scale).to(dtype)
+        return nn.Parameter(out, requires_grad=False)
 
     def full(self, shape, value: float, dtype=torch.float32) -> nn.Parameter:
-        return self._param(torch.full(tuple(shape), value, dtype=dtype))
+        dev = "meta" if self.device.type == "meta" else "cpu"
+        return self._param(torch.full(tuple(shape), value, dtype=dtype,
+                                      device=dev))
 
     def cat(self, *parts: torch.Tensor) -> nn.Parameter:
         return self._param(torch.cat(parts))

@@ -52,10 +52,13 @@ def require_cuda(device) -> None:
             "is false; pass device='cpu'")
 
 
-def default_generator(device) -> torch.Generator:
+def default_generator(device) -> Optional[torch.Generator]:
     """A generator seeded with 0 on ``device`` (the reference's
-    ``PRNGKey(0)`` counterpart)."""
+    ``PRNGKey(0)`` counterpart); none on ``meta``, where nothing is
+    drawn."""
     require_cuda(device)
+    if torch.device(device).type == "meta":
+        return None
     return torch.Generator(device=torch.device(device)).manual_seed(0)
 
 
@@ -93,11 +96,19 @@ class LM(nn.Module):
     device (default: one seeded with 0 on ``device``) and keeps them on
     ``device``, which defaults to ``"cuda"`` and raises where CUDA is
     absent. ``models.convert.load_reference_params`` replaces them with
-    the reference's.
+    the reference's. On ``device="meta"`` nothing is drawn or allocated:
+    the sharded steps run such a model with the store's tensors put in
+    its parameters' places (``launch.steps``).
+
+    ``sharder(x, kind)`` is the reference's activation-sharding hook
+    (kinds "hidden", "logits" here and "moe_group", "moe_buf",
+    "moe_buf3" in ``moe_apply``): ``launch.steps.make_sharder``'s records
+    the spec the reference would constrain ``x`` to and returns ``x``.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sharder=None):
         super().__init__()
         require_cuda(device)
         if generator is None:
@@ -105,6 +116,7 @@ class LM(nn.Module):
         init = L.Init(device, generator)
         dt = L.torch_dtype(cfg.dtype)
         self.cfg = cfg
+        self.shard = sharder if sharder is not None else _no_shard
         self.embed = L.Embed(cfg.vocab, cfg.d_model, init, dt)
         self.final_norm = L.Norm(cfg.norm, cfg.d_model, init)
         self.lm_head = (None if cfg.tie_embeddings
@@ -166,17 +178,19 @@ class LM(nn.Module):
             x = x * float(np.sqrt(cfg.d_model))
         if cfg.frontend != "none" and extra is not None:
             x = torch.cat([extra.to(x.dtype), x], dim=1)
-        return x
+        return self.shard(x, "hidden")
 
     def _logits(self, x):
         cfg = self.cfg
         x = self.final_norm(x)
         table = (self.embed if cfg.tie_embeddings else self.lm_head).table
-        return L.softcap(L.unembed(x, table), cfg.logit_softcap)
+        logits = self.shard(L.unembed(x, table), "logits")
+        return L.softcap(logits, cfg.logit_softcap)
 
     def _ffn(self, blk: Block, h):
         if hasattr(blk, "moe"):
             return M.moe_apply(blk.moe, h, self.cfg.moe,
+                               shard_fn=self.shard,
                                seq_groups=self.cfg.moe_seq_groups)
         return blk.mlp(h)
 
@@ -457,6 +471,10 @@ class LM(nn.Module):
         return enc, (ks, vs)
 
 
+def _no_shard(x, kind):
+    return x
+
+
 def _ring_attn_decode(p: A.Attention, x, pos: int, ck, cv, cfg, window: int):
     """Sliding-window decode through a ring buffer of ``window`` slots.
 
@@ -468,6 +486,12 @@ def _ring_attn_decode(p: A.Attention, x, pos: int, ck, cv, cfg, window: int):
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = A._project_qkv(p, x, positions, cfg)
     slot = pos % window
+    if isinstance(ck, A.SeqPieces):
+        ck.write(slot, k)
+        cv.write(slot, v)
+        o = A.sdpa_pieces(q, ck, cv, lambda j: (pos - j) % window <= pos,
+                          cfg)
+        return A.out_proj(o, p.wo), (ck, cv)
     ck[:, slot:slot + 1] = k.to(ck.dtype)
     cv[:, slot:slot + 1] = v.to(cv.dtype)
     age = (pos - torch.arange(window, device=x.device)) % window

@@ -6,6 +6,13 @@ queue (dropped beyond the capacity), and tokens are gathered into a
 dense (E, C, d) buffer per routing group that feeds a grouped einsum.
 Dispatch and combine are gathers; scatters touch only integer index
 vectors. The routing integers equal the reference's exactly.
+
+With the experts over the mesh's ``model`` axis (expert parallelism), the
+sharded steps set ``MoE.expert_pieces``: one ``(first expert, w_gate,
+w_up, w_down)`` block a ``model`` coordinate, each on its position's
+device. Each block then runs its own experts on the slots routed to them
+and its outputs land in those experts' slots; the combine sums them. No
+expert stack is gathered whole.
 """
 from __future__ import annotations
 
@@ -36,6 +43,14 @@ class MoE(nn.Module):
                                   scale / np.sqrt(f / d_model), dtype)
         self.shared = (L.MLP(d_model, f * cfg.n_shared, "swiglu", init, dtype)
                        if cfg.n_shared else None)
+        self.expert_pieces = None
+
+
+def _experts(bufs, w_gate, w_up, w_down, dtype):
+    g = torch.einsum("becd,edf->becf", bufs, w_gate)
+    u = torch.einsum("becd,edf->becf", bufs, w_up)
+    h = F.silu(g.float()).to(dtype) * u
+    return torch.einsum("becf,efd->becd", h, w_down)
 
 
 def top_k(logits, k: int):
@@ -87,13 +102,16 @@ def default_capacity(S: int, cfg: MoEConfig) -> int:
 
 
 def moe_apply(p: MoE, x, cfg: MoEConfig, capacity: int | None = None,
-              seq_groups: int = 1):
+              seq_groups: int = 1, shard_fn=None):
     """x (B, S, d) -> (B, S, d). Routing groups are batch rows (times
     ``seq_groups`` slices of each row); the k-way combine accumulates in
-    the input dtype, one choice at a time."""
+    the input dtype, one choice at a time. ``shard_fn(x, kind)``: the
+    reference's activation-sharding hook, at its three call sites."""
+    shard = shard_fn or (lambda t, kind: t)
     B0, S0, d = x.shape
     if seq_groups > 1 and S0 % seq_groups == 0:
         x = x.reshape(B0 * seq_groups, S0 // seq_groups, d)
+        x = shard(x, "moe_group")
     B, S, _ = x.shape
     k, E = cfg.top_k, cfg.n_experts
     if capacity is None:
@@ -109,13 +127,18 @@ def moe_apply(p: MoE, x, cfg: MoEConfig, capacity: int | None = None,
 
     x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
     bufs = torch.gather(x_pad, 1, src[..., None].expand(B, E * capacity, d))
-    bufs = bufs.reshape(B, E, capacity, d)
-    g = torch.einsum("becd,edf->becf", bufs, p.w_gate)
-    u = torch.einsum("becd,edf->becf", bufs, p.w_up)
-    h = F.silu(g.float()).to(x.dtype) * u
-    out_buf = torch.einsum("becf,efd->becd", h, p.w_down)
-    flat_out = torch.cat([out_buf.reshape(B, E * capacity, d),
-                          out_buf.new_zeros((B, 1, d))], dim=1)
+    bufs = shard(bufs.reshape(B, E, capacity, d), "moe_buf")
+    if p.expert_pieces is None:
+        out_buf = _experts(bufs, p.w_gate, p.w_up, p.w_down, x.dtype)
+    else:
+        outs = []
+        for e0, wg, wu, wd in p.expert_pieces:
+            part = bufs[:, e0:e0 + wg.shape[0]].to(wg.device)
+            outs.append(_experts(part, wg, wu, wd, x.dtype).to(x.device))
+        out_buf = torch.cat(outs, dim=1)
+    flat_out = shard(out_buf.reshape(B, E * capacity, d),
+                     "moe_group" if seq_groups > 1 else "moe_buf3")
+    flat_out = torch.cat([flat_out, flat_out.new_zeros((B, 1, d))], dim=1)
 
     out = x.new_zeros((B, S, d))
     for j in range(k):
