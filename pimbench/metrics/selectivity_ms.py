@@ -1,0 +1,15 @@
+"""selectivity_ms (ms): the mean time a filter query the program computed
+spends on its relations' selectivities and per-conjunct pass fractions
+(the program's ``db.selectivity`` spans, cut to the window)."""
+
+
+def read(run):
+    try:
+        from repro_torch.core import spans
+    except ImportError:          # a program without spans
+        return None
+    sel = [s for s in spans.clip(spans.spans(), run.t_start, run.t_end)
+           if s.name == "db.selectivity"]
+    if not sel:
+        return None
+    return 1e3 * sum(s.seconds for s in sel) / len({s.request for s in sel})

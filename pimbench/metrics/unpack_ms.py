@@ -1,0 +1,15 @@
+"""unpack_ms (ms): the mean time a filter query the program computed
+spends unpacking its masks to one boolean a record (the program's
+``db.unpack`` spans, cut to the window)."""
+
+
+def read(run):
+    try:
+        from repro_torch.core import spans
+    except ImportError:          # a program without spans
+        return None
+    sel = [s for s in spans.clip(spans.spans(), run.t_start, run.t_end)
+           if s.name == "db.unpack"]
+    if not sel:
+        return None
+    return 1e3 * sum(s.seconds for s in sel) / len({s.request for s in sel})

@@ -49,7 +49,7 @@ import torch
 
 from repro_torch.kernels import materialize as kmat
 from repro_torch.kernels import program as kprog
-from . import bitslice, isa
+from . import bitslice, isa, spans
 from . import engine as eng
 from .distributed import Mesh, combine_minmax_candidates, mesh_shard_axes
 
@@ -923,16 +923,22 @@ class ProgramResult:
         stays on its device; one sync a shard reads its count and only its
         ``count``-column prefix is copied to the host, the prefixes
         concatenated in shard order."""
-        dense = _stitch([v[:, :int(c)].cpu().numpy()
-                         for v, c in zip(self._raw["mat_vals"][name],
-                                         self._raw["mat_cnt"][name])],
-                        axis=1)
+        with spans.span("db.readback") as sp:
+            dense = _stitch([v[:, :int(c)].cpu().numpy()
+                             for v, c in zip(self._raw["mat_vals"][name],
+                                             self._raw["mat_cnt"][name])],
+                            axis=1)
+            sp.set(bytes=dense.nbytes)
         attrs = self._cp.mat_attrs[name]
         return {a: dense[i] for i, a in enumerate(attrs)}
 
     def mask(self, name: str, n_records: Optional[int] = None) -> np.ndarray:
         n = self._n if n_records is None else n_records
-        return bitslice.unpack_mask(self.mask_packed(name), n)
+        with spans.span("db.readback") as sp:
+            words = self.mask_packed(name)
+            sp.set(bytes=words.nbytes)
+        with spans.span("db.unpack"):
+            return bitslice.unpack_mask(words, n)
 
     def scalar(self, name: str) -> Optional[int]:
         kind = self._cp.scalar_kinds[name][0]
@@ -1042,10 +1048,12 @@ def compile_program(relation: eng.PimRelation,
         # reuse the cached tape with no added work. Raises
         # ProgramVerificationError on any error finding.
         from repro_torch.analysis import passes  # lazy: it imports us
-        passes.verify_compile(instrs, relation, analysis, plan, arith,
-                              frozenset(keep), "fused")
-        tape = _build_tape(instrs, kernel_masks, kernel_attrs, widths, plan,
-                           arith)
+        with spans.span("db.compile.verify", relation=relation.name,
+                        n_instrs=len(instrs)):
+            passes.verify_compile(instrs, relation, analysis, plan, arith,
+                                  frozenset(keep), "fused")
+            tape = _build_tape(instrs, kernel_masks, kernel_attrs, widths,
+                               plan, arith)
         _FN_CACHE.put(sig, tape)
     return CompiledProgram(instrs, mask_outputs, scalar_kinds, analysis,
                            plan, arith, tape, dict(widths), mat_attrs,

@@ -50,6 +50,10 @@ traffic, latency, energy and endurance at any scale factor).
 (admission windows through :meth:`PimDatabase.dispatch_batch`, a
 version-keyed result cache), and ``faults.FaultManager`` guards its
 relations (parity scrubs, verify-after-write, repair and republish).
+
+While a ``torch.profiler`` session runs, a batch records its spans
+(``core.spans``): compile, each relation's launch, each query's readback,
+unpack and selectivity, the host stage, and ``apply``/``publish``.
 """
 from __future__ import annotations
 
@@ -68,6 +72,7 @@ from repro_torch.core import cost_model as cm
 from repro_torch.core import engine as eng
 from repro_torch.core import isa
 from repro_torch.core import program as prog
+from repro_torch.core import spans
 from . import exec as E
 from . import queries as Q
 from . import schema as S
@@ -350,7 +355,9 @@ class PimDatabase:
                       ) -> RelationRun:
         cols = self.tables[rel_name]
         attrs = predicate_attrs(pred)
-        sels = _conjunct_selectivities(cols, pred)
+        with spans.span("db.selectivity", relation=rel_name):
+            sels = _conjunct_selectivities(cols, pred)
+            selectivity = float(mask.mean()) if mask.size else 0.0
         agg_bits: List[int] = []
         if spec.kind == "full" and rel_name == spec.agg_relation:
             for a in spec.aggregates:
@@ -359,7 +366,7 @@ class PimDatabase:
                                  for x in predicate_attrs_of_expr(a.expr)]
         return RelationRun(
             n_records=rel.n_records, mask=mask, trace=trace,
-            selectivity=float(mask.mean()) if mask.size else 0.0,
+            selectivity=selectivity,
             filter_attr_bits=[rel.width_of(a) for a in attrs],
             filter_attr_sels=sels, agg_attr_bits=agg_bits,
             agg_plane_reads=cp.agg_plane_reads if cp else 0,
@@ -560,24 +567,29 @@ class PimDatabase:
         (launches, plane reads, dedup, linked keys, walls) land in
         ``last_batch_stats`` and are returned."""
         t_all = time.perf_counter()
-        works, rel_programs = self._compile_batch(specs)
-
         compiled: Dict[str, prog.CompiledProgram] = {}
         results: Dict[str, prog.ProgramResult] = {}
         linked: Dict[str, prog.LinkedProgram] = {}
         pim_wall: Dict[str, float] = {}
-        for rel_name, programs in rel_programs.items():
-            rel = self.relations[rel_name]
-            lp = prog.link_programs(programs, relation=rel)
-            cp = prog.compile_program(rel, lp.instrs,
-                                      mask_outputs=lp.mask_outputs,
-                                      query_slots=lp.slots, mesh=self.mesh,
-                                      shard_axes=self.shard_axes)
-            t0 = time.perf_counter()
-            res = prog.run_program(cp, rel)
-            pim_wall[rel_name] = time.perf_counter() - t0
-            compiled[rel_name], results[rel_name] = cp, res
-            linked[rel_name] = lp
+        with spans.span("db.compile", n_queries=len(specs)):
+            works, rel_programs = self._compile_batch(specs)
+            for rel_name, programs in rel_programs.items():
+                rel = self.relations[rel_name]
+                lp = prog.link_programs(programs, relation=rel)
+                compiled[rel_name] = prog.compile_program(
+                    rel, lp.instrs, mask_outputs=lp.mask_outputs,
+                    query_slots=lp.slots, mesh=self.mesh,
+                    shard_axes=self.shard_axes)
+                linked[rel_name] = lp
+        for rel_name, cp in compiled.items():
+            with spans.span("db.launch", relation=rel_name,
+                            n_queries=len(rel_programs[rel_name])) as sp:
+                t0 = time.perf_counter()
+                results[rel_name] = prog.run_program(
+                    cp, self.relations[rel_name])
+                t1 = time.perf_counter()
+                sp.at(t0, t1)
+            pim_wall[rel_name] = t1 - t0
 
         # Each relation's one launch is shared: attribute its time evenly
         # to the queries that read it.
@@ -610,48 +622,50 @@ class PimDatabase:
 
         pendings: List[PendingQuery] = []
         demux_s = 0.0
-        for w in works:
+        for qi, w in enumerate(works):
             t0 = time.perf_counter()
-            if w.host is not None:
-                materialized: Dict[str, E.HostTable] = {}
-                mat_rows: Dict[str, int] = {}
-                pim_s = 0.0
-                for br in w.rels:
-                    view = results[br.rel_name].query(br.slot)
-                    vals = view.materialized(br.mat_reg)
-                    materialized[br.rel_name] = E.HostTable(
-                        {a: np.asarray(v, np.int64)
-                         for a, v in vals.items()})
-                    mat_rows[br.rel_name] = materialized[br.rel_name].n_rows
-                    pim_s += share[br.rel_name]
-                pendings.append(PendingQuery(
-                    w.spec, Engine.FUSED, host=w.host,
-                    materialized=materialized, mat_rows=mat_rows,
-                    pim_s=pim_s, batch_stats=stats))
-            else:
-                rel_runs: Dict[str, RelationRun] = {}
-                aggs: Dict[str, Dict[str, object]] = {}
-                wall = 0.0
-                for br in w.rels:
-                    view = results[br.rel_name].query(br.slot)
-                    mask = view.mask(br.mask_reg)
-                    if br.group_regs:
-                        aggs.update(self._finalize_aggs(
-                            br.group_regs, view.scalar, view.scalar))
-                    rel = self.relations[br.rel_name]
-                    rel_runs[br.rel_name] = self._relation_run(
-                        rel, br.rel_name, w.spec, br.pred, mask,
-                        list(br.compiler.program),
-                        cp=compiled[br.rel_name])
-                    wall += share[br.rel_name]
-                res = QueryResult(
-                    spec=w.spec, engine=Engine.FUSED, aggregates=aggs,
-                    relations=rel_runs, pim_s=wall,
-                    wall_s=wall + time.perf_counter() - t0,
-                    batch_stats=stats)
-                pendings.append(PendingQuery(w.spec, Engine.FUSED,
-                                             result=res, pim_s=wall,
-                                             batch_stats=stats))
+            with spans.context(query=qi):
+                if w.host is not None:
+                    materialized: Dict[str, E.HostTable] = {}
+                    mat_rows: Dict[str, int] = {}
+                    pim_s = 0.0
+                    for br in w.rels:
+                        view = results[br.rel_name].query(br.slot)
+                        vals = view.materialized(br.mat_reg)
+                        materialized[br.rel_name] = E.HostTable(
+                            {a: np.asarray(v, np.int64)
+                             for a, v in vals.items()})
+                        mat_rows[br.rel_name] = (
+                            materialized[br.rel_name].n_rows)
+                        pim_s += share[br.rel_name]
+                    pendings.append(PendingQuery(
+                        w.spec, Engine.FUSED, host=w.host,
+                        materialized=materialized, mat_rows=mat_rows,
+                        pim_s=pim_s, batch_stats=stats))
+                else:
+                    rel_runs: Dict[str, RelationRun] = {}
+                    aggs: Dict[str, Dict[str, object]] = {}
+                    wall = 0.0
+                    for br in w.rels:
+                        view = results[br.rel_name].query(br.slot)
+                        mask = view.mask(br.mask_reg)
+                        if br.group_regs:
+                            aggs.update(self._finalize_aggs(
+                                br.group_regs, view.scalar, view.scalar))
+                        rel = self.relations[br.rel_name]
+                        rel_runs[br.rel_name] = self._relation_run(
+                            rel, br.rel_name, w.spec, br.pred, mask,
+                            list(br.compiler.program),
+                            cp=compiled[br.rel_name])
+                        wall += share[br.rel_name]
+                    res = QueryResult(
+                        spec=w.spec, engine=Engine.FUSED, aggregates=aggs,
+                        relations=rel_runs, pim_s=wall,
+                        wall_s=wall + time.perf_counter() - t0,
+                        batch_stats=stats)
+                    pendings.append(PendingQuery(w.spec, Engine.FUSED,
+                                                 result=res, pim_s=wall,
+                                                 batch_stats=stats))
             demux_s += time.perf_counter() - t0
 
         stats["demux_s"] = demux_s
@@ -665,10 +679,14 @@ class PimDatabase:
         finish queries of one batch at once."""
         if pending.result is not None:
             return pending.result
-        t0 = time.perf_counter()
-        table = E.run_host_stage(
-            pending.host, E.ExecContext(pending.materialized, self.tables))
-        host_s = time.perf_counter() - t0
+        with spans.span("host.stage") as sp:
+            t0 = time.perf_counter()
+            table = E.run_host_stage(
+                pending.host, E.ExecContext(pending.materialized,
+                                            self.tables))
+            t1 = time.perf_counter()
+            sp.at(t0, t1)
+        host_s = t1 - t0
         if pending.batch_stats is not None:
             with self._stats_lock:
                 pending.batch_stats["host_s"] = (
@@ -744,29 +762,30 @@ class PimDatabase:
         ``self.tables`` follows the live rows). Returns per-relation
         accounting."""
         from repro_torch import dml as dml_mod
-        stats: Dict[str, Dict[str, object]] = {}
-        order: List[str] = []
-        for m in mutations:
-            name = dml_mod.mutation_relation(m)
-            st = self.dml_state(name).apply(m)
-            entry = stats.setdefault(name, {
-                "n_mutations": 0, "n_rows": 0, "n_instructions": 0,
-                "cycles": 0, "cells_written": 0})
-            entry["n_mutations"] += 1
-            entry["n_rows"] += st.n_rows
-            entry["n_instructions"] += st.n_instructions
-            entry["cycles"] += st.cycles
-            entry["cells_written"] += st.cells_written
-            if name not in order:
-                order.append(name)
-        versions = self.publish(order)
-        for name in order:
-            d = self._dml[name]
-            entry = stats[name]
-            entry["version"] = versions[name]
-            entry["busiest_row_ops"] = d.segments.busiest_row_ops()
-            entry["capacity_records"] = d.capacity
-        return stats
+        with spans.span("dml.apply"):
+            stats: Dict[str, Dict[str, object]] = {}
+            order: List[str] = []
+            for m in mutations:
+                name = dml_mod.mutation_relation(m)
+                st = self.dml_state(name).apply(m)
+                entry = stats.setdefault(name, {
+                    "n_mutations": 0, "n_rows": 0, "n_instructions": 0,
+                    "cycles": 0, "cells_written": 0})
+                entry["n_mutations"] += 1
+                entry["n_rows"] += st.n_rows
+                entry["n_instructions"] += st.n_instructions
+                entry["cycles"] += st.cycles
+                entry["cells_written"] += st.cells_written
+                if name not in order:
+                    order.append(name)
+            versions = self.publish(order)
+            for name in order:
+                d = self._dml[name]
+                entry = stats[name]
+                entry["version"] = versions[name]
+                entry["busiest_row_ops"] = d.segments.busiest_row_ops()
+                entry["capacity_records"] = d.capacity
+            return stats
 
     def publish(self, rel_names: Sequence[str]) -> Dict[str, int]:
         """Publish the current DML state of each named relation: bump the
@@ -776,20 +795,21 @@ class PimDatabase:
         dict is shallow-copied first: several databases may share one.
         With a mesh the relation is sharded again. Returns ``{name:
         new_version}``."""
-        self.tables = dict(self.tables)
-        versions: Dict[str, int] = {}
-        for name in rel_names:
-            d = self._dml[name]
-            version = max(d.rel.version,
-                          self.relations[name].version) + 1
-            rel = dataclasses.replace(d.rel, version=version)
-            if self.mesh is not None:
-                rel = rel.shard(self.mesh, self.shard_axes)
-            self.relations[name] = rel
-            d.rel = rel
-            self.tables[name] = d.live_columns()
-            versions[name] = version
-        return versions
+        with spans.span("dml.publish"):
+            self.tables = dict(self.tables)
+            versions: Dict[str, int] = {}
+            for name in rel_names:
+                d = self._dml[name]
+                version = max(d.rel.version,
+                              self.relations[name].version) + 1
+                rel = dataclasses.replace(d.rel, version=version)
+                if self.mesh is not None:
+                    rel = rel.shard(self.mesh, self.shard_axes)
+                self.relations[name] = rel
+                d.rel = rel
+                self.tables[name] = d.live_columns()
+                versions[name] = version
+            return versions
 
     def dml_row_ops(self) -> Dict[str, float]:
         """Accumulated busiest-row DML cell writes per mutated relation

@@ -27,6 +27,12 @@ on the host, no launch and no device sync) fan out on a
 window's dispatch.  ``max_pending`` bounds admitted-but-unresolved
 queries (an ``asyncio.Semaphore`` — further ``submit`` calls simply
 wait, which is the backpressure signal).
+
+While a ``torch.profiler`` session runs, the service records spans
+(``core.spans``): each request's wait from admission to its window's
+start (``svc.queue``), each window on the dispatch thread
+(``dispatch.window``) and each host stage's wait for a worker
+(``host.queue``), every span of a request under its id.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core import program as prog
+from repro_torch.core import spans
 from repro_torch.db.database import Engine, PimDatabase, QueryResult
 from repro_torch.faults.model import TransientDispatchError
 
@@ -50,6 +57,8 @@ class _Request:
     key: Tuple
     future: asyncio.Future
     t_submit: float
+    rid: int = dataclasses.field(default_factory=spans.next_id)
+    t_admit: float = dataclasses.field(default_factory=time.perf_counter)
 
 
 class QueryService:
@@ -199,6 +208,20 @@ class QueryService:
                 self._reject(r, e)
 
     def _run_window(self, window: List[_Request]) -> None:
+        wid = spans.next_id()
+        if spans.on():
+            t = time.perf_counter()
+            for r in window:
+                spans.record("svc.queue", r.t_admit, t, origin="event loop",
+                             request=r.rid, window=wid)
+        with spans.context(window=wid,
+                           requests=tuple(r.rid for r in window)), \
+                spans.span("dispatch.window", n_queries=len(window),
+                           degraded=False) as sp:
+            self._dispatch_window(window, wid, sp)
+
+    def _dispatch_window(self, window: List[_Request], wid: int,
+                         sp) -> None:
         try:
             fm = self.faults
             if self.engine is not Engine.FUSED:
@@ -207,6 +230,7 @@ class QueryService:
             if fm is not None and not fm.breaker.allow_fused():
                 # Breaker open: degrade the window to the EAGER engine
                 # (slower, still correct) instead of failing queries.
+                sp.set(degraded=True)
                 self.n_degraded_windows += 1
                 self.n_fault_recovered += len(window)
                 self._run_window_eager(window, Engine.EAGER)
@@ -225,6 +249,7 @@ class QueryService:
                         if fm is not None:
                             fm.breaker.record_failure()
                         # Retries exhausted: degrade this window too.
+                        sp.set(degraded=True)
                         self.n_degraded_windows += 1
                         self.n_fault_recovered += len(window)
                         self._run_window_eager(window, Engine.EAGER)
@@ -245,7 +270,8 @@ class QueryService:
                 rs["plane_reads"] for rs in stats["relations"].values())
             for r, p in zip(window, pendings):
                 if p.needs_host:
-                    self._host_pool.submit(self._finish_host, r, p)
+                    self._host_pool.submit(self._finish_host, r, p, wid,
+                                           time.perf_counter())
                 else:
                     self._resolve(r, p.result)
         except Exception as e:                   # noqa: BLE001
@@ -256,13 +282,18 @@ class QueryService:
                           engine: Engine) -> None:
         for r in window:
             try:
-                self._resolve(r, self.db._execute_one(r.spec, engine))
+                with spans.context(request=r.rid):
+                    self._resolve(r, self.db._execute_one(r.spec, engine))
             except Exception as e:              # noqa: BLE001
                 self._reject(r, e)
 
-    def _finish_host(self, req: _Request, pending) -> None:
+    def _finish_host(self, req: _Request, pending, wid: int,
+                     t_handoff: float) -> None:
+        spans.record("host.queue", t_handoff, time.perf_counter(),
+                     origin="dispatch thread", request=req.rid, window=wid)
         try:
-            self._resolve(req, self.db.finish_query(pending))
+            with spans.context(request=req.rid, window=wid):
+                self._resolve(req, self.db.finish_query(pending))
         except Exception as e:                   # noqa: BLE001
             self._reject(req, e)
 
