@@ -83,16 +83,35 @@ def pack_bits(values: np.ndarray, n_bits: int, n_words: int | None = None) -> np
     return out
 
 
+def _plane_bytes(planes: np.ndarray, n_records: int) -> np.ndarray:
+    """The little-endian bytes of the words that hold ``n_records``.
+
+    ``planes``: (n_bits, W) words of any 32-bit integer dtype (the port's
+    int32 planes read back as their ``uint32`` view) -> (n_bits, 4 * w)
+    uint8 with ``w = ceil(n_records / 32)``; words past ``w`` (reserved
+    capacity) are not read.
+    """
+    planes = np.asarray(planes)
+    n_used = -(-n_records // WORD_BITS)
+    if n_used > planes.shape[1]:
+        raise IndexError(f"{n_records} records need {n_used} words, "
+                         f"planes hold {planes.shape[1]}")
+    words = np.ascontiguousarray(planes[:, :n_used]).astype("<u4", copy=False)
+    return words.view(np.uint8)
+
+
 def unpack_bits(planes: np.ndarray, n_records: int) -> np.ndarray:
-    """Inverse of :func:`pack_bits` -> uint64 values of shape (n_records,)."""
-    planes = np.asarray(planes, dtype=np.uint32)
-    n_bits, n_words = planes.shape
-    idx = np.arange(n_records, dtype=np.int64)
-    word = idx // WORD_BITS
-    shift = (idx % WORD_BITS).astype(np.uint32)
+    """Inverse of :func:`pack_bits` -> uint64 values of shape (n_records,).
+
+    Word-parallel: each plane's bytes are unpacked LSB-first (record
+    ``r`` is bit ``r % 8`` of byte ``r // 8``, the same slot as bit
+    ``r % 32`` of word ``r // 32`` in little-endian order) and OR-ed in
+    at the plane's bit position.
+    """
+    data = _plane_bytes(planes, n_records)
     out = np.zeros(n_records, dtype=np.uint64)
-    for b in range(n_bits):
-        bits = (planes[b, word] >> shift) & np.uint32(1)
+    for b in range(data.shape[0]):
+        bits = np.unpackbits(data[b], count=n_records, bitorder="little")
         out |= bits.astype(np.uint64) << np.uint64(b)
     return out
 
@@ -126,7 +145,9 @@ def pack_mask(mask: np.ndarray, n_words: int | None = None) -> np.ndarray:
 
 
 def unpack_mask(words: np.ndarray, n_records: int) -> np.ndarray:
-    return unpack_bits(np.asarray(words)[None, :], n_records).astype(bool)
+    """Inverse of :func:`pack_mask` -> bool mask of shape (n_records,)."""
+    data = _plane_bytes(np.asarray(words)[None, :], n_records)[0]
+    return np.unpackbits(data, count=n_records, bitorder="little").view(bool)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -62,6 +62,48 @@ def test_all_ones_words_and_bit31_survive_the_int32_view():
     np.testing.assert_array_equal(tb.unpack_bits(te.to_words(t), n), col)
 
 
+def _words_as_read_back(rng, n_bits, n_words):
+    """Random planes as the port reads them back: the ``uint32`` view of
+    int32 device words (``engine.to_words``), with an all-ones word and a
+    bit-31-only word wherever the planes have room."""
+    words = rng.integers(0, 1 << 32, (n_bits, n_words), dtype=np.uint64)
+    words = words.astype(np.uint32)
+    words[:, 0] = 0xFFFFFFFF
+    if n_words > 1:
+        words[:, 1] = 0x80000000
+    t = torch.from_numpy(words.view(np.int32).copy())
+    return te.to_words(t)
+
+
+@pytest.mark.parametrize("n_bits", [1, 12, 31, 33])
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 31, 32, 33, 5000, 40_000,
+                               32 * 2 * tb.TILE_WORDS])
+def test_unpack_matches_reference(ref, n, n_bits):
+    """``unpack_mask`` and ``unpack_bits`` equal the reference bit for bit
+    on exactly filled words (``32 * W`` records), on the tile-padded words
+    ``pack_bits`` makes, and on words with a reserved capacity tile past
+    them (a DML relation's), ignoring every bit past ``n``."""
+    rbs, _ = ref
+    rng = np.random.default_rng(SEED + n + n_bits)
+    full = n == 32 * 2 * tb.TILE_WORDS
+    for n_words in ([n // 32] if full else
+                    [tb.pad_words(n), tb.pad_words(n) + tb.TILE_WORDS]):
+        planes = _words_as_read_back(rng, n_bits, n_words)
+        assert planes.dtype == np.uint32 and planes[0, 0] == 0xFFFFFFFF
+        got = tb.unpack_bits(planes, n)
+        want = rbs.unpack_bits(planes, n)
+        assert got.dtype == want.dtype == np.uint64
+        assert got.shape == want.shape == (n,)
+        np.testing.assert_array_equal(got, want)
+        mask = tb.unpack_mask(planes[0], n)
+        want_mask = rbs.unpack_mask(planes[0], n)
+        assert mask.dtype == want_mask.dtype == np.bool_
+        assert mask.shape == want_mask.shape == (n,)
+        np.testing.assert_array_equal(mask, want_mask)
+    if n >= 64:
+        assert mask[:32].all() and not mask[32:63].any() and mask[63]
+
+
 def test_layout_matches_reference(ref):
     rbs, _ = ref
     rng = np.random.default_rng(SEED)

@@ -89,6 +89,52 @@ def test_empty_group_aggregates_are_none(port_db):
     assert tdb.avg_value(None) is None and tdb.avg_value((7, 2)) == 3.5
 
 
+def test_batch_mask_on_grown_relation_matches_eager_and_oracle(
+        monkeypatch):
+    """A FUSED batch's ``QueryView.mask`` on a relation DML has grown
+    past a tile (its words hold more records than ``n_records``) equals
+    the EAGER engine's ``read_mask`` and the ORACLE's selection: a
+    ``(n_records,)`` bool mask, each live row's bit at its slot, the
+    other slots clear."""
+    from repro_torch import dml
+    from repro_torch.core import bitslice
+    from repro_torch.core import program as tprog
+    db = tdb.PimDatabase(ttpch.generate(sf=SF, seed=SEED + 1), device="cpu")
+    li = db.tables["lineitem"]
+    n0 = len(next(iter(li.values())))
+    idx = np.random.default_rng(SEED).integers(
+        0, n0, bitslice.TILE_RECORDS - n0 + 100)
+    db.apply([dml.Insert("lineitem", {a: np.asarray(c)[idx]
+                                      for a, c in li.items()}),
+              dml.Delete("lineitem", row_ids=list(range(0, 300, 3)))])
+    rel = db.relations["lineitem"]
+    n = rel.n_records
+    assert n > bitslice.TILE_RECORDS
+    assert rel.layout.capacity_records > n
+
+    seen = []
+    real = tprog.QueryView.mask
+
+    def spy(self, name, n_records=None):
+        out = real(self, name, n_records)
+        seen.append(out)
+        return out
+    monkeypatch.setattr(tprog.QueryView, "mask", spy)
+    specs = [tq.get_query(q).filter_only() for q in ("Q6", "Q1")]
+    pendings, _ = db.dispatch_batch(specs)
+    assert len(seen) == len(specs)
+    d = db.dml_state("lineitem")
+    slots = np.asarray([d.slot_of[i] for i in d.live_ids()], np.int64)
+    for spec, pending, mask in zip(specs, pendings, seen):
+        assert mask.dtype == np.bool_ and mask.shape == (n,)
+        assert pending.result.relations["lineitem"].mask is mask
+        eager = db.execute(spec, engine="eager").relations["lineitem"].mask
+        np.testing.assert_array_equal(mask, eager, spec.name)
+        oracle = db.execute(spec, engine="oracle").relations["lineitem"].mask
+        np.testing.assert_array_equal(mask[slots], oracle, spec.name)
+        assert mask.sum() == oracle.sum() > 0
+
+
 # --------------------------------------------------------------------------
 # Guards
 # --------------------------------------------------------------------------
