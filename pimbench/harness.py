@@ -2,12 +2,14 @@
 
 The cell's configuration (``configs/<config>.json``) fixes the data and
 the guarantees, its traffic mix (``traffic/<mix>.json``) the clients, the
-templates and the refresh stream. Set-up generates the tables from the
-seed with the frozen generator, loads them into the program's
-``PimDatabase`` and warms up every template of the mix (and, with a
-refresh stream, one RF1 and one RF2) through a ``QueryService``. The
-window then runs the mix's traffic (and refresh stream) against a fresh
-``QueryService`` for ``seconds``: an open loop of requests at the mix's
+templates and the refresh stream. The configuration's deployment module
+(``deployments/<name>.py``, named by its ``"deployment"`` key, ``tpch``
+where it has none) generates the tables from the seed and loads them into
+the program's ``PimDatabase``; set-up then warms up every template of the
+mix (and, with a refresh stream, one RF1 and one RF2) through a
+``QueryService``. The window then runs the mix's traffic (and refresh
+stream), and the deployment's own tasks, against a fresh ``QueryService``
+for ``seconds``: an open loop of requests at the mix's
 fixed rate, or closed-loop clients; either walks a seeded permutation of
 the templates, pass after pass, with fresh parameters each submission
 from a stream that every seed shares. An open loop keeps at most the
@@ -19,7 +21,7 @@ awaited (at most 60 s past the close) and judged, but only those that
 finished inside the window count towards a rate. Afterwards the card's
 peak memory is read, the mutable relations' stored rows are read back
 from the card, the program is released and every answer is compared with
-the reference (``compare.py``).
+the reference (``compare.py``); the deployment's own checks come after.
 """
 from __future__ import annotations
 
@@ -33,11 +35,12 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from . import adapter, compare, reference, roofline, templates, tpch_gen
+from . import adapter, compare, reference, roofline, templates
 from .refresh import MUTABLE, VersionedTables
 
 LATE_S = 60.0
 THREADS = 4          # the reference's threads, after the window
+DEPLOYMENT = "tpch"  # the deployment of a configuration that names none
 
 
 @dataclasses.dataclass
@@ -92,6 +95,10 @@ class Run:
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
     controls: Dict[str, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
+    # What the deployment's window tasks recorded, and the limits of the
+    # checks it adds (run.py's LIMITS hold the base checks' limits).
+    deployment: Dict = dataclasses.field(default_factory=dict)
+    limits: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def in_window(self) -> List[QueryRecord]:
         """Queries due in the window that reached the program."""
@@ -152,11 +159,18 @@ def pass_queries(plan, *key: int) -> List[templates.BoundQuery]:
     return out
 
 
-async def _warmup(db, plan, stream) -> int:
+def deployment_of(config: Dict):
+    """The deployment module the configuration names: ``deployments/<name>.py``
+    (dashes in the name read as underscores)."""
+    name = config.get("deployment", DEPLOYMENT).replace("-", "_")
+    return importlib.import_module("pimbench.deployments." + name)
+
+
+async def _warmup(db, plan, stream, svc_kwargs: Optional[Dict] = None) -> int:
     from repro_torch.serve import QueryService
 
     qs = pass_queries(plan, 0)
-    async with QueryService(db) as svc:
+    async with QueryService(db, **(svc_kwargs or {})) as svc:
         await asyncio.gather(*[svc.submit(adapter.query_spec(q)) for q in qs])
         k = 0
         if stream is not None:
@@ -166,10 +180,13 @@ async def _warmup(db, plan, stream) -> int:
 
 
 async def _window(db, plan, traffic: Dict, seed: int, seconds: float,
-                  stream, k0: int):
+                  stream, k0: int, svc_kwargs: Optional[Dict] = None,
+                  own_tasks: Optional[Callable] = None):
+    """``own_tasks(svc, t_end)`` gives the deployment's coroutines, run
+    beside the clients and awaited and cancelled with them."""
     from repro_torch.serve import QueryService
 
-    svc = QueryService(db)
+    svc = QueryService(db, **(svc_kwargs or {}))
     queries: List[QueryRecord] = []
     refreshes: List[RefreshRecord] = []
     state = {"acked": k0, "called": k0}
@@ -263,6 +280,8 @@ async def _window(db, plan, traffic: Dict, seed: int, seconds: float,
                  for c in range(int(traffic["clients"]))]
     if stream is not None:
         tasks.append(asyncio.ensure_future(refresher()))
+    if own_tasks is not None:
+        tasks += [asyncio.ensure_future(c) for c in own_tasks(svc, t_end)]
     _, pending = await asyncio.wait(tasks, timeout=seconds + LATE_S)
     for t in pending:
         t.cancel()
@@ -291,20 +310,21 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int,
     before the warm-up (the tests plant faults through it).
     ``controls`` ({name: answer(record, view)}) are judged as the program
     is, each in the program's place (``control.py``); their numbers land
-    in ``run.controls``."""
+    in ``run.controls``. The deployment's checks are added to ``checks``,
+    their limits land in ``run.limits`` (``run.limits_of`` refuses one
+    that names a base check)."""
     import torch
     from repro_torch.core import program as prog
-    from repro_torch.db.database import PimDatabase
 
+    dep = deployment_of(config)
     t0 = time.perf_counter() if t_start is None else t_start
     phases = {"start": time.perf_counter() - t0}
-    tables = tpch_gen.generate(sf=float(config["scale_factor"]), seed=seed)
+    tables = dep.generate(config, seed)
     phases["generate"] = time.perf_counter() - t0
     for cols in tables.values():
         for v in cols.values():
             v.flags.writeable = False
-    db = PimDatabase({r: dict(c) for r, c in tables.items()}, device=device,
-                     wear_policy=config["wear_policy"])
+    db = dep.load(tables, config, device)
     phases["load"] = time.perf_counter() - t0
     if program_hook is not None:
         program_hook(db)
@@ -315,11 +335,17 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int,
         stream = VersionedTables(tables, float(config["scale_factor"]), seed,
                                  rf["orders_per_sf"],
                                  rf["lineitems_per_order"])
-    k0 = asyncio.run(_warmup(db, plan, stream))
+    svc_kwargs = dep.service_kwargs(db, config)
+    k0 = asyncio.run(_warmup(db, plan, stream, svc_kwargs))
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+
+    record: Dict = {}
+
+    def own_tasks(svc, t_end):
+        return dep.window_tasks(svc, db, config, t_end, record)
 
     tape0 = prog.program_cache_stats()
     dev_trace, sampler = None, None
@@ -330,11 +356,11 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int,
         dev_trace = DeviceTrace()
         with dev_trace:
             out = asyncio.run(_window(db, plan, traffic, seed, seconds,
-                                      stream, k0))
+                                      stream, k0, svc_kwargs, own_tasks))
         sampler.stop()
     else:
         out = asyncio.run(_window(db, plan, traffic, seed, seconds, stream,
-                                  k0))
+                                  k0, svc_kwargs, own_tasks))
     queries, refreshes, w0, w1, svc_stats, late_max = out
     phases["drained"] = time.perf_counter() - w0
     phases["generator_late_max"] = late_max
@@ -359,7 +385,7 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int,
             r.stats = {rel: {k: v for k, v in st.items()
                              if k in ("n_rows", "cells_written")}
                        for rel, st in r.stats.items()}
-    del db
+    del db, svc_kwargs, own_tasks
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -435,7 +461,10 @@ def run_cell(cell: Dict, config: Dict, traffic: Dict, seed: int,
               widths=roofline.widths(tables), n_rows_at=n_rows_at,
               selected=selected, trace=dev_trace,
               samples=sampler.samples if sampler is not None else [],
-              phases=phases, controls=control_numbers)
+              phases=phases, controls=control_numbers, deployment=record)
+    for name, (value, limit) in dep.checks(run).items():
+        checks[name] = value
+        run.limits[name] = limit
     return run, checks, attempted, failed, dev
 
 

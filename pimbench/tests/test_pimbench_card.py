@@ -10,7 +10,8 @@ from pimbench.tests import _small
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell_name", ["sf1-filter-streams",
                                        "sf1-refresh-mixed",
-                                       "sf1-join-streams"])
+                                       "sf1-join-streams",
+                                       "sf1-filter-streams-32"])
 def test_a_short_traced_run_on_the_card_is_correct(card, cell_name):
     bench, cell, config, traffic = _small.cell(cell_name, sf=0.01)
     run, checks, attempted, failed, dev = harness.run_cell(

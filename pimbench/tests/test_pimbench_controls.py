@@ -8,6 +8,7 @@ from pimbench.tests._small import run_small as _run, sound as _sound
 # Queries whose answers leave float32's mantissa at sf 0.002: a short
 # window under load still answers some of them.
 EXACT_SUMS = {"sf1-filter-streams": ("Q1", "Q6", "Q22_sub"),
+              "sf1-filter-streams-32": ("Q1", "Q6", "Q22_sub"),
               "sf1-refresh-mixed": ("Q1", "Q6", "Q22_sub"),
               "sf1-join-streams": ("Q3", "Q10", "Q14")}
 
