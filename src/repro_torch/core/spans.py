@@ -49,6 +49,26 @@ Spans recorded by the port and what reads them (``pimbench/metrics``):
                      clock reads of ``QueryResult.host_s``
   dml.apply          ``PimDatabase.apply``
   dml.publish        ``PimDatabase.publish`` (``live_columns`` included)
+  dispatch.retry     ``QueryService``: the backoff sleep before a retry of
+                     a window's dispatch after a transient fault
+                     (``attempt``)
+  dispatch.eager     ``QueryService``: a degraded window's run on the
+                     EAGER engine (``reason``: ``exhausted``, its retries
+                     ran out; ``open``, the breaker was open)
+  faults.inject      ``QueryService.scrub(inject=...)``: the injection
+                     that runs just before the scrub, in the same job on
+                     the dispatch thread (``n_faults``: cells made corrupt
+                     and dispatch faults queued)
+  faults.scrub       ``FaultManager.scrub``: the parity diff of every
+                     guarded relation, its repairs and the republish
+                     (``relations`` guarded, ``corrupt`` coordinates
+                     found, ``bytes`` copied off the device)
+  faults.repair      one repaired relation's rewrites and remaps inside
+                     ``faults.scrub`` (``relation``, ``soft`` and ``hard``
+                     slots, ``rows`` rewritten or moved); the republish's
+                     ``dml.publish`` follows it inside ``faults.scrub``
+  faults.verify      ``FaultManager.after_write``: the written slots' words
+                     read back and checked (``bytes``)
 """
 from __future__ import annotations
 

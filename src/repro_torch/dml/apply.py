@@ -408,8 +408,12 @@ class RelationDml:
         if not slots:
             return 0
         attrs = self.rel.layout.attributes
-        moving = [lid for lid in self.live_ids()
-                  if int(self.slot_of[lid]) in set(slots)]
+        # Only a live slot holds a row to move: the walk over every live
+        # id is skipped when none of the listed slots is live.
+        bad = set(slots)
+        moving = ([lid for lid in self.live_ids()
+                   if self.slot_of[lid] in bad]
+                  if self.live[slots].any() else [])
         old_slots = np.asarray([self.slot_of[lid] for lid in moving],
                                dtype=np.int64)
         saved = {a: self.shadow[a][old_slots].copy() for a in attrs}

@@ -131,6 +131,11 @@ class DeviceFaultModel:
         """Queue ``n`` transient failures for upcoming dispatches."""
         self._dispatch_faults += int(n)
 
+    @property
+    def dispatch_faults_queued(self) -> int:
+        """Transient failures queued and not yet raised."""
+        return self._dispatch_faults
+
     # -- engine hook protocol ----------------------------------------------
     def _dead_mask(self, rel: str, n_words: int) -> np.ndarray | None:
         dead = self._dead.get(rel)

@@ -28,6 +28,11 @@ one per fault class in ``model``:
     the same device); after a cooldown a half-open probe re-attempts
     FUSED and a success closes the breaker.  Single-threaded on the
     serving layer's 1-wide dispatch pool, so no locking.
+
+While a ``torch.profiler`` session runs, a scrub is recorded as a
+``faults.scrub`` span, each repaired relation inside it as
+``faults.repair``, and each verify-after-write read-back as
+``faults.verify`` (``core.spans``).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from typing import Callable, Dict, List, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import bitslice, engine, isa
+from repro_torch.core import bitslice, engine, isa, spans
 
 from . import guard
 from .guard import VALID, RelationGuard
@@ -190,22 +195,24 @@ class FaultManager:
         pend = self._pending.setdefault(d.rel.name, set())
         for instr in instrs:
             g.observe(instr, n_words)
-        for instr in instrs:
-            if not isinstance(instr, isa.PlaneWrite) \
-                    or instr.dest == VALID or not instr.rows:
-                continue   # the valid plane always programs (SLC region)
-            rows = np.asarray(instr.rows, np.int64)
-            planes = d.rel.planes[instr.dest]
-            words = torch.as_tensor(rows // bitslice.WORD_BITS,
-                                    device=planes.device)
-            block = guard.to_host(planes[:, words])
-            local = (np.arange(rows.shape[0], dtype=np.int64)
-                     * bitslice.WORD_BITS + rows % bitslice.WORD_BITS)
-            got = bitslice.unpack_rows(block, local)
-            want = np.asarray(instr.values, np.uint64)
-            for i in np.flatnonzero(got != want):
-                pend.add((instr.dest, int(rows[i])))
-                self.n_write_faults += 1
+        with spans.span("faults.verify") as sp:
+            for instr in instrs:
+                if not isinstance(instr, isa.PlaneWrite) \
+                        or instr.dest == VALID or not instr.rows:
+                    continue   # the valid plane always programs (SLC)
+                rows = np.asarray(instr.rows, np.int64)
+                planes = d.rel.planes[instr.dest]
+                words = torch.as_tensor(rows // bitslice.WORD_BITS,
+                                        device=planes.device)
+                block = guard.to_host(planes[:, words])
+                local = (np.arange(rows.shape[0], dtype=np.int64)
+                         * bitslice.WORD_BITS + rows % bitslice.WORD_BITS)
+                got = bitslice.unpack_rows(block, local)
+                want = np.asarray(instr.values, np.uint64)
+                for i in np.flatnonzero(got != want):
+                    pend.add((instr.dest, int(rows[i])))
+                    self.n_write_faults += 1
+            sp.set(bytes=guard.readback_bytes - before)
         self.write_check_bytes.append(guard.readback_bytes - before)
 
     # -- fault injection (chaos harness / tests) ---------------------------
@@ -291,34 +298,40 @@ class FaultManager:
         self.n_scrubs += 1
         report: Dict[str, Dict[str, object]] = {}
         repaired: List[str] = []
-        for name, g in self.guards.items():
-            d = self.db.dml_state(name)
-            bad = set(g.scrub(d.rel)) | self._pending.pop(name, set())
-            if not bad:
-                continue
-            self.n_detected += len(bad)
-            for a, s in bad:
-                if (name, a, s) in self.injected:
-                    self.detected.add((name, a, s))
-            hard = sorted({s for a, s in bad
-                           if self.model.is_hard(name, a, s)})
-            soft = sorted({s for a, s in bad} - set(hard))
-            n_rewritten = n_moved = 0
-            if soft:
-                n_rewritten = d.rewrite_rows(soft)
-                self.n_repaired_rows += n_rewritten
-            if hard:
-                n_moved = d.remap_rows(hard)
-                g.quarantine(hard)
-                self.n_remapped_rows += n_moved
-            repaired.append(name)
-            report[name] = {
-                "corrupt": sorted(bad), "soft": soft, "hard": hard,
-                "rewritten": n_rewritten, "remapped": n_moved}
-        if repaired:
-            versions = self.db.publish(repaired)
-            for name in repaired:
-                report[name]["version"] = versions[name]
+        with spans.span("faults.scrub", relations=len(self.guards)) as sp:
+            for name, g in self.guards.items():
+                d = self.db.dml_state(name)
+                bad = set(g.scrub(d.rel)) | self._pending.pop(name, set())
+                if not bad:
+                    continue
+                self.n_detected += len(bad)
+                for a, s in bad:
+                    if (name, a, s) in self.injected:
+                        self.detected.add((name, a, s))
+                hard = sorted({s for a, s in bad
+                               if self.model.is_hard(name, a, s)})
+                soft = sorted({s for a, s in bad} - set(hard))
+                n_rewritten = n_moved = 0
+                with spans.span("faults.repair", relation=name,
+                                soft=len(soft), hard=len(hard)) as rp:
+                    if soft:
+                        n_rewritten = d.rewrite_rows(soft)
+                        self.n_repaired_rows += n_rewritten
+                    if hard:
+                        n_moved = d.remap_rows(hard)
+                        g.quarantine(hard)
+                        self.n_remapped_rows += n_moved
+                    rp.set(rows=n_rewritten + n_moved)
+                repaired.append(name)
+                report[name] = {
+                    "corrupt": sorted(bad), "soft": soft, "hard": hard,
+                    "rewritten": n_rewritten, "remapped": n_moved}
+            if repaired:
+                versions = self.db.publish(repaired)
+                for name in repaired:
+                    report[name]["version"] = versions[name]
+            sp.set(corrupt=sum(len(r["corrupt"]) for r in report.values()),
+                   bytes=guard.readback_bytes - before)
         self.scrub_log.append((time.perf_counter() - t0,
                                guard.readback_bytes - before))
         return report

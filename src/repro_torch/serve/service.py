@@ -32,7 +32,10 @@ While a ``torch.profiler`` session runs, the service records spans
 (``core.spans``): each request's wait from admission to its window's
 start (``svc.queue``), each window on the dispatch thread
 (``dispatch.window``) and each host stage's wait for a worker
-(``host.queue``), every span of a request under its id.
+(``host.queue``), every span of a request under its id; with a fault
+manager also each backoff sleep before a retry (``dispatch.retry``), each
+degraded window's EAGER run (``dispatch.eager``) and a scrub's injected
+faults (``faults.inject``).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import asyncio
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core import program as prog
 from repro_torch.core import spans
@@ -152,20 +155,42 @@ class QueryService:
         self.n_mutations += sum(s["n_mutations"] for s in stats.values())
         return stats
 
-    async def scrub(self) -> Dict[str, Dict[str, object]]:
+    async def scrub(self, inject: Optional[Callable[[], None]] = None
+                    ) -> Dict[str, Dict[str, object]]:
         """Run one fault-manager integrity scrub, ordered with query
         traffic exactly like :meth:`apply`: the open admission window
         flushes first, then the scrub (parity diff + repair + version
         republish) runs on the single dispatch worker.  Queries admitted
         before the scrub execute against pre-repair contents; later
         submissions see the repaired (re-versioned) relations and miss
-        the result cache by construction."""
+        the result cache by construction.
+
+        ``inject``, a callable of no arguments, runs on the dispatch
+        worker immediately before the scrub, in the same job (faults
+        injected through the fault manager): windows admitted before the
+        call see the planes before the injection, and no window runs
+        between the injection and the scrub."""
         if self.faults is None:
             raise RuntimeError("QueryService has no fault_manager")
         loop = self._bind_loop()
         self.batcher.flush_now()
         return await loop.run_in_executor(
-            self._dispatch_pool, self.faults.scrub)
+            self._dispatch_pool, self._scrub_job, inject)
+
+    def _scrub_job(self, inject) -> Dict[str, Dict[str, object]]:
+        fm = self.faults
+        try:
+            if inject is not None:
+                with spans.span("faults.inject") as sp:
+                    n0 = fm.n_injected + fm.model.dispatch_faults_queued
+                    inject()
+                    sp.set(n_faults=fm.n_injected
+                           + fm.model.dispatch_faults_queued - n0)
+        finally:
+            # What an injection that raised left corrupt is still repaired
+            # before the next window; its error reaches the caller.
+            report = fm.scrub()
+        return report
 
     def _bind_loop(self) -> asyncio.AbstractEventLoop:
         loop = asyncio.get_running_loop()
@@ -230,10 +255,7 @@ class QueryService:
             if fm is not None and not fm.breaker.allow_fused():
                 # Breaker open: degrade the window to the EAGER engine
                 # (slower, still correct) instead of failing queries.
-                sp.set(degraded=True)
-                self.n_degraded_windows += 1
-                self.n_fault_recovered += len(window)
-                self._run_window_eager(window, Engine.EAGER)
+                self._degrade(window, sp, "open")
                 return
             attempt = 0
             while True:
@@ -249,12 +271,10 @@ class QueryService:
                         if fm is not None:
                             fm.breaker.record_failure()
                         # Retries exhausted: degrade this window too.
-                        sp.set(degraded=True)
-                        self.n_degraded_windows += 1
-                        self.n_fault_recovered += len(window)
-                        self._run_window_eager(window, Engine.EAGER)
+                        self._degrade(window, sp, "exhausted")
                         return
-                    time.sleep(fm.retry.delay(attempt))
+                    with spans.span("dispatch.retry", attempt=attempt):
+                        time.sleep(fm.retry.delay(attempt))
                     attempt += 1
                     self.n_retries += 1
             if fm is not None:
@@ -277,6 +297,16 @@ class QueryService:
         except Exception as e:                   # noqa: BLE001
             for r in window:
                 self._reject(r, e)
+
+    def _degrade(self, window: List[_Request], sp, reason: str) -> None:
+        """Answer a window on the EAGER engine (slower, still correct):
+        the breaker is open (``reason`` ``"open"``) or its retries ran
+        out (``"exhausted"``)."""
+        sp.set(degraded=True)
+        self.n_degraded_windows += 1
+        self.n_fault_recovered += len(window)
+        with spans.span("dispatch.eager", reason=reason):
+            self._run_window_eager(window, Engine.EAGER)
 
     def _run_window_eager(self, window: List[_Request],
                           engine: Engine) -> None:

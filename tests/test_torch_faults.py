@@ -309,6 +309,31 @@ def test_stuck_cell_is_hard_and_remapped():
     _same_relation(db, ref, "lineitem")
 
 
+def _stuck_empty_slot(pkg):
+    """A stuck-at-1 cell in never-allocated capacity: hard, its slot
+    retired and quarantined, no row moved, the slot map unchanged."""
+    db = pkg.db()
+    fm = pkg.faults.FaultManager(db)
+    fm.guard_relation("lineitem")
+    d = db.dml_state("lineitem")
+    slot = d.capacity - 2
+    before = dict(d.slot_of)
+    fm.inject_stuck("lineitem", "l_tax", slot, 1, 1)
+    report = fm.scrub()
+    assert report["lineitem"]["hard"] == [slot]
+    assert report["lineitem"]["remapped"] == 0
+    assert d.slot_of == before and d.segments.n_retired == 1
+    assert fm.scrub() == {}
+    return db, report
+
+
+def test_stuck_cell_in_an_empty_slot_moves_no_row():
+    db, report = _stuck_empty_slot(_port())
+    ref, rreport = _stuck_empty_slot(_ref())
+    assert report == rreport
+    _same_relation(db, ref, "lineitem")
+
+
 def _ghost_valid_flip(pkg):
     """A flipped valid bit in never-allocated capacity makes a ghost row
     visible; the scrub detects it and the rewrite clears it again."""
@@ -573,6 +598,116 @@ def test_service_degrades_to_eager_and_recovers():
     assert got["breaker"] == {"state": "closed", "trips": 1,
                               "recoveries": 1}
     assert got == _degrade_and_recover(_ref())
+
+
+def _logged(db, fm, log):
+    """Log each window's dispatch and each scrub on the dispatch thread."""
+    dispatch, scrub = db.dispatch_batch, fm.scrub
+
+    def dispatch_batch(specs):
+        log.append("window")
+        return dispatch(specs)
+
+    def logged_scrub():
+        log.append("scrub")
+        return scrub()
+    db.dispatch_batch, fm.scrub = dispatch_batch, logged_scrub
+
+
+def test_scrub_inject_runs_just_before_the_scrub_in_one_job():
+    """``scrub(inject=...)``: a query admitted before the call answers on
+    the planes before the injection, the injection and the scrub run with
+    no window between them, and a query submitted after the call answers
+    exactly on the repaired, re-versioned relation."""
+    db = _port().db()
+    fm = faults.FaultManager(db)
+    fm.guard_relation("lineitem")
+    q6 = queries.get_query("Q6").filter_only()
+    q1 = queries.get_query("Q1").filter_only()
+    expect6 = db.run_baseline(q6).aggregates
+    expect1 = db.run_baseline(q1).aggregates
+    ship = np.asarray(db.tables["lineitem"]["l_shipdate"])
+    slot = int(np.flatnonzero((ship >= 600) & (ship < 2048))[0])
+    top = db.relations["lineitem"].planes["l_shipdate"].shape[0] - 1
+    v0 = db.relations["lineitem"].version
+    log = []
+    _logged(db, fm, log)
+
+    def inject():
+        log.append("inject")
+        fm.inject_flip("lineitem", "l_shipdate", slot, top)
+
+    async def run():
+        svc = serve.QueryService(db, max_wait_s=0.05, fault_manager=fm)
+        async with svc:
+            before = asyncio.ensure_future(svc.submit(q6))
+            await asyncio.sleep(0)           # admitted, not yet flushed
+            scrub = asyncio.ensure_future(svc.scrub(inject=inject))
+            await asyncio.sleep(0)
+            after = asyncio.ensure_future(svc.submit(q1))
+            report = await scrub
+            r6, r1 = await before, await after
+            again = await svc.submit(q6)
+        return r6, r1, again, report
+
+    r6, r1, again, report = _run(run())
+    assert log == ["window", "inject", "scrub", "window", "window"]
+    assert r6.aggregates == expect6
+    assert r1.aggregates == expect1 and not r1.cached
+    assert again.aggregates == expect6 and not again.cached
+    assert report["lineitem"]["corrupt"] == [("l_shipdate", slot)]
+    assert report["lineitem"]["version"] == \
+        db.relations["lineitem"].version > v0
+    assert fm.undetected() == set()
+
+
+def test_scrub_after_an_injection_that_raises_still_repairs():
+    """An injection that raises half way: the scrub still runs in the
+    same job, and the error reaches the caller."""
+    db = _port().db()
+    fm = faults.FaultManager(db)
+    fm.guard_relation("orders")
+    clean = _words(db.relations["orders"].planes["o_totalprice"]).copy()
+
+    def inject():
+        fm.inject_flip("orders", "o_totalprice", 7, 2)
+        raise RuntimeError("injection failed")
+
+    async def run():
+        async with serve.QueryService(db, fault_manager=fm) as svc:
+            with pytest.raises(RuntimeError, match="injection failed"):
+                await svc.scrub(inject=inject)
+
+    _run(run())
+    assert fm.n_scrubs == 1 and fm.undetected() == set()
+    np.testing.assert_array_equal(
+        _words(db.relations["orders"].planes["o_totalprice"]), clean)
+
+
+def _scrub_after_flip(via_service: bool):
+    db = _port().db()
+    fm = faults.FaultManager(db)
+    fm.guard_relation("orders")
+    fm.inject_flip("orders", "o_totalprice", 7, 2)
+    fm.inject_flip("orders", guard.VALID, db.relations["orders"]
+                   .layout.n_words * 32 - 1, 0)
+
+    async def run():
+        async with serve.QueryService(db, fault_manager=fm) as svc:
+            return await svc.scrub()
+    report = _run(run()) if via_service else fm.scrub()
+    return db, fm, report
+
+
+def test_scrub_without_inject_is_the_fault_managers_scrub():
+    """``scrub()`` with no argument runs ``FaultManager.scrub`` alone on
+    the dispatch worker: the same report, words and counters."""
+    db, fm, got = _scrub_after_flip(True)
+    ref, rfm, want = _scrub_after_flip(False)
+    assert got == want and got["orders"]["soft"]
+    _same_relation(db, ref, "orders")
+    assert (fm.n_scrubs, fm.n_detected, fm.n_repaired_rows) == \
+        (rfm.n_scrubs, rfm.n_detected, rfm.n_repaired_rows) == (1, 2, 2)
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,11 @@ every span of the query path: children inside their parents, per-query
 spans under their request's and window's ids, one ``db.compile.verify``
 a tape-cache miss, ``db.launch`` and ``host.stage`` from the clock reads
 of ``pim_s`` and ``host_s``, and every span mirrored as a profiler range.
-Answers are the same with tracing on and off.
+Answers are the same with tracing on and off. A fault round through a
+``QueryService`` with a ``FaultManager`` (an injection and its scrub in
+one job, then windows that retry, degrade to EAGER and recover) records
+the fault path's spans with their attributes, each the innermost span on
+the dispatch thread somewhere, and nothing with tracing off.
 """
 import asyncio
 import math
@@ -23,6 +27,7 @@ from repro_torch.core import program as prog
 from repro_torch.core import spans
 from repro_torch.db import queries, tpch
 from repro_torch.db.database import PimDatabase
+from repro_torch.faults import FaultManager
 from repro_torch.serve import QueryService
 
 SF, SEED = 0.002, 20260418
@@ -218,6 +223,101 @@ def test_answers_equal_with_tracing_off(traced):
         assert g.keys() == w.keys()
         for r in g:
             np.testing.assert_array_equal(g[r], w[r])
+
+
+FAULT_SPANS = ("faults.inject", "faults.scrub", "faults.repair",
+               "faults.verify", "dispatch.retry", "dispatch.eager")
+
+
+def _fault_round(db):
+    """A scrub whose injection flips a lineitem and an orders cell, sticks
+    a cell of an empty lineitem slot at 1 and queues 6 dispatch faults,
+    then four windows of one query: two exhaust their retries, the breaker
+    trips, one runs while it is open, the half-open probe closes it."""
+    fm = FaultManager(db)
+    for rel in ("lineitem", "orders"):
+        fm.guard_relation(rel)
+    empty = db.dml_state("lineitem").capacity - 1
+    specs = [queries.get_query(n).filter_only() for n in FILTERS]
+
+    def inject():
+        fm.inject_flip("lineitem", "l_quantity", 3, 1)
+        fm.inject_flip("orders", "o_totalprice", 5, 0)
+        fm.inject_stuck("lineitem", "l_tax", empty, 0, 1)
+        fm.model.inject_dispatch_faults(6)
+
+    async def run():
+        async with QueryService(db, max_wait_s=0.001,
+                                fault_manager=fm) as svc:
+            report = await svc.scrub(inject=inject)
+            results = [await svc.submit(s) for s in specs]
+            return report, results, svc.stats()
+
+    return asyncio.run(asyncio.wait_for(run(), timeout=TIMEOUT_S))
+
+
+@pytest.fixture(scope="module")
+def traced_faults():
+    db = PimDatabase(_tables(), device="cpu")
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = _fault_round(db)
+    recorded = spans.spans()
+    spans.clear()
+    return out, recorded
+
+
+def test_fault_spans_carry_their_attributes(traced_faults):
+    (report, results, stats), recorded = traced_faults
+    assert stats["breaker"] == {"state": "closed", "trips": 1,
+                                "recoveries": 1}
+    assert [r.engine.value for r in results] == ["eager"] * 3 + ["fused"]
+    by_id = {s.id: s for s in recorded}
+    named = {n: [s for s in recorded if s.name == n] for n in FAULT_SPANS}
+    (inject,), (scrub,) = named["faults.inject"], named["faults.scrub"]
+    assert inject.attrs == {"n_faults": 2 + 1 + 6}
+    assert inject.end <= scrub.start
+    assert scrub.attrs == {"relations": 2, "corrupt": 3, "bytes": 0}
+    assert sorted((s.attrs["relation"], s.attrs["soft"], s.attrs["hard"],
+                   s.attrs["rows"]) for s in named["faults.repair"]) == [
+        ("lineitem", 1, 1, 1), ("orders", 1, 0, 1)]
+    (publish,) = [s for s in recorded if s.name == "dml.publish"]
+    assert {s.parent for s in named["faults.repair"]} == {publish.parent} \
+        == {scrub.id}
+    assert named["faults.verify"]
+    for s in named["faults.verify"]:
+        assert by_id[s.parent].name == "faults.repair"
+        assert s.attrs == {"bytes": 0}        # nothing leaves the CPU
+    assert [s.attrs["attempt"] for s in named["dispatch.retry"]] == \
+        [0, 1, 0, 1]
+    assert [s.attrs["reason"] for s in named["dispatch.eager"]] == \
+        ["exhausted", "exhausted", "open"]
+    for s in named["dispatch.retry"] + named["dispatch.eager"]:
+        assert by_id[s.parent].name == "dispatch.window"
+    assert [by_id[s.parent].attrs["degraded"]
+            for s in named["dispatch.eager"]] == [True] * 3
+    for s in named["faults.inject"] + named["faults.scrub"]:
+        assert s.parent is None and s.thread.startswith(spans.DISPATCH)
+
+
+def test_fault_spans_are_innermost_on_the_dispatch_thread(traced_faults):
+    _, recorded = traced_faults
+    t0 = min(s.start for s in recorded)
+    t1 = max(s.end for s in recorded)
+    out = spans.idle_by_span([], recorded, t0, t1)
+    (dispatch,) = [d for t, d in out["idle_by_span"].items()
+                   if t.startswith(spans.DISPATCH)]
+    for name in FAULT_SPANS:
+        assert dispatch.get(name, 0.0) > 0.0, name
+
+
+def test_fault_path_records_nothing_with_tracing_off():
+    spans.clear()
+    assert not spans.on()
+    report, results, stats = _fault_round(PimDatabase(_tables(),
+                                                      device="cpu"))
+    assert stats["degraded_windows"] == 3 and report["lineitem"]["hard"]
+    assert spans.spans() == []
 
 
 def test_recorder_cap_counts_what_it_drops():
